@@ -25,7 +25,24 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    time (median of 3 timed runs after one warm run), a profiler
    breakdown of one race by kernel and a timing of each layer;
 7. each kernel's time at the main path's shapes beside its plain
-   version's time and the card's bound for the same work.
+   version's time and the card's bound for the same work;
+8. the serving kernels (``flash_attention``, ``decode_attention``,
+   ``rmsnorm``) against their plain versions on the card, at the reference
+   tests' shapes and the serving path's (1e-4 abs/rel in float32, 2e-2 in
+   bfloat16);
+9. the serving path's reference check, card against CPU: qwen1.5-0.5b at
+   full width and depth 2, the same seeded weights on both: prefill logits
+   of 1 x 256 tokens and the logits after 16 decode steps (1e-4 of the
+   largest |logit|), and greedy ``generate`` tokens (identical);
+10. the serving main path: qwen1.5-0.5b at full width and depth (24
+   layers, float32, ``attention_impl="kernel"``), ``ServeEngine.prefill``
+   of 4 x 2048 tokens (exactly 24 ``flash_attention`` launches) and
+   ``serve_demo`` at its defaults (12 requests x 16 tokens), with every
+   kernel's launch count set to 0 just before and read just after; then
+   the prefill and decode-step wall times and a profiler breakdown of each;
+11. each serving kernel's time at the path's shapes beside its plain
+   version's, the card's bound and one PyTorch call's (used nowhere in the
+   port) for the same work.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -34,6 +51,7 @@ repository beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -53,6 +71,13 @@ TOL = 2e-5
 #: float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: Serving: the architecture, the prefill batch and its sequence length.
+SERVE_ARCH = "qwen1.5-0.5b"
+PREFILL_B, PREFILL_S = 4, 2048
+#: A serving decode shape: slots x cache positions, KV heads, head dim.
+DECODE_B, DECODE_S, DECODE_H, DECODE_D = 8, 4096, 16, 64
+RMS_T, RMS_D = 8192, 1024
+TOL_F32, TOL_BF16 = 1e-4, 2e-2
 
 
 def _line(tag: str, text: str) -> None:
@@ -77,6 +102,90 @@ def _gpu_ms(fn, iters: int = 200) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _wall_ms(fn, reps: int = 3) -> float:
+    """Host wall time of ``fn`` ending in a synchronise: median of ``reps``
+    runs after one warm run."""
+    import numpy as np
+    import torch
+
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def _device_profile(fn):
+    """Run ``fn`` once under ``torch.profiler``: (profiled wall seconds,
+    the CUDA kernels' key averages, a function giving one's device us)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels_seen = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", 0.0)
+                or getattr(e, "self_cuda_time_total", 0.0))
+
+    return wall, kernels_seen, dev_us
+
+
+def _ptxas_summary(log: str):
+    """One line per compiled function: its registers, shared memory and
+    spills, from ``-Xptxas -v``."""
+    out, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        ln = ln.strip()
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+        elif "spill" in ln:
+            spill = ln
+        elif "ptxas info" in ln and "Used" in ln:
+            # The mangled name's tail after "kernel" carries the template
+            # arguments (I...E), which tell the instantiations apart.
+            short = name[name.find("kernel"):] if "kernel" in name else name
+            out.append(f"{short[:48]}: {ln.split(':', 1)[1].strip()}; {spill}")
+    return out
+
+
+def _attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """How many (query, key) pairs the ``sq`` query rows attend, in all."""
+    import numpy as np
+
+    i = np.arange(sq)
+    hi = np.minimum(i + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(sq, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _close(got, want, tol: float, what: str) -> float:
+    """Max abs error of ``got`` against ``want``; raises past
+    ``tol`` abs + ``tol`` rel."""
+    import torch
+
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    if not bool((diff <= tol + tol * want.abs()).all()):
+        raise AssertionError(f"{what}: max abs err {err:.3e} past {tol} abs/rel")
+    return err
 
 
 class HostDraws:
@@ -109,6 +218,336 @@ def _policies(model, scan_engine, isc):
     }
 
 
+def _serving_kernels_check(dev, rng):
+    """Phase 8: each serving kernel against its plain version on the card.
+    Returns each kernel's max abs error (float32 and bfloat16 cases) and
+    the launches the checks made."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.rmsnorm import kernel as rn_kernel
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.rmsnorm.ref import rms_norm_plain
+
+    def normal(shape, dtype=torch.float32):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev).to(dtype)
+
+    mods = {"flash_attention": fa_kernel, "decode_attention": da_kernel,
+            "rmsnorm": rn_kernel}
+    before = {n: m.LAUNCHES for n, m in mods.items()}
+    errs = {n: {"f32": 0.0, "bf16": 0.0} for n in mods}
+
+    def record(name, dtype, got, want, what):
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        tol = TOL_BF16 if kind == "bf16" else TOL_F32
+        err = _close(got, want, tol, f"{name} {what}")
+        errs[name][kind] = max(errs[name][kind], err)
+        return err
+
+    # flash_attention: the reference tests' shapes x three masks, one
+    # bfloat16 case, and the serving prefill's shape.
+    cases = [((b, s, hq, hkv, d), causal, window, torch.float32)
+             for b, s, hq, hkv, d in ((1, 128, 1, 1, 64), (2, 256, 8, 2, 64),
+                                      (1, 200, 8, 8, 128), (1, 384, 4, 1, 256))
+             for causal, window in ((True, 0), (True, 64), (False, 0))]
+    cases.append(((1, 256, 4, 2, 64), True, 0, torch.bfloat16))
+    cases.append(((PREFILL_B, PREFILL_S, 16, 16, 64), True, 0, torch.float32))
+    for (b, s, hq, hkv, d), causal, window, dtype in cases:
+        q = normal((b, s, hq, d), dtype)
+        k = normal((b, s, hkv, d), dtype)
+        v = normal((b, s, hkv, d), dtype)
+        got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_plain(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        what = (f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal={causal} "
+                f"window={window} {str(dtype)[6:]}")
+        err = record("flash_attention", dtype, got, want, what)
+        _line("kernel", f"flash_attention {what}: max abs err {err:.3e}")
+
+    # decode_attention: the reference tests' shapes with window 0 and 200,
+    # one bfloat16 case and a serving shape with mixed lengths.
+    cases = [((b, hq, hkv, d, s), window, torch.float32)
+             for b, hq, hkv, d, s in ((1, 1, 1, 64, 512), (2, 8, 2, 64, 700),
+                                      (4, 16, 16, 128, 1024))
+             for window in (0, 200)]
+    cases.append(((3, 8, 2, 64, 512), 0, torch.bfloat16))
+    cases.append(((DECODE_B, DECODE_H, DECODE_H, DECODE_D, DECODE_S), 0,
+                  torch.float32))
+    for (b, hq, hkv, d, s), window, dtype in cases:
+        q = normal((b, hq, d), dtype)
+        kc = normal((b, s, hkv, d), dtype)
+        vc = normal((b, s, hkv, d), dtype)
+        lens = torch.as_tensor(rng.integers(0, s, size=(b,)).astype(np.int32),
+                               device=dev)
+        got = da_ops.decode_attention(q, kc, vc, lens, window=window)
+        want = decode_attention_plain(q, kc, vc, lens, window)
+        torch.cuda.synchronize()
+        what = (f"B={b} Hq={hq} Hkv={hkv} D={d} S={s} window={window} "
+                f"{str(dtype)[6:]} lengths {lens.tolist()}")
+        err = record("decode_attention", dtype, got, want, what)
+        _line("kernel", f"decode_attention {what[:110]}: max abs err {err:.3e}")
+
+    # rmsnorm: the reference tests' shapes in both types, and the serving
+    # path's activations.
+    for shape in ((7, 64), (3, 77, 256), (2, 4, 8, 512), (RMS_T, RMS_D)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = normal(shape, dtype)
+            sc = torch.as_tensor(
+                rng.normal(1.0, 0.1, (shape[-1],)).astype(np.float32),
+                device=dev)
+            got = rn_ops.rms_norm(x, sc)
+            want = rms_norm_plain(x, sc)
+            torch.cuda.synchronize()
+            if got.dtype != dtype:
+                raise AssertionError(f"rmsnorm returned {got.dtype}")
+            what = f"{shape} {str(dtype)[6:]}"
+            err = record("rmsnorm", dtype, got, want, what)
+            _line("kernel", f"rmsnorm {what}: max abs err {err:.3e}")
+    for name, e in errs.items():
+        e["launches"] = mods[name].LAUNCHES - before[name]
+        _line("kernel", f"{name}: agrees with its plain version, max abs err "
+              f"{e['f32']:.3e} in float32 (limit {TOL_F32} abs/rel), "
+              f"{e['bf16']:.3e} in bfloat16 (limit {TOL_BF16}); "
+              f"{e['launches']} launches")
+    return errs
+
+
+def _serving_reference(dev) -> None:
+    """Phase 9: the serving path at full width and depth 2, card against
+    CPU, the same seeded weights on both."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(SERVE_ARCH, dtype="float32", param_dtype="float32",
+                     n_layers=2, attention_impl="kernel")
+    on_cpu = build_model(cfg, device="cpu", seed=0)
+    on_card = copy.deepcopy(on_cpu).to(dev)
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, cfg.vocab_size, (1, 256)).astype(np.int32)
+    want = ServeEngine(on_cpu, 64, 2).prefill({"tokens": toks})
+    got = ServeEngine(on_card, 64, 2).prefill({"tokens": toks}).cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    top2 = torch.topk(want[0], 2, dim=-1).values
+    gap = float((top2[:, 0] - top2[:, 1]).min())
+    _line("reference", f"{SERVE_ARCH} depth 2, prefill 1 x 256: max |logit| "
+          f"{scale:.4f}, max abs diff card vs CPU {err:.3e} (limit 1e-4 x "
+          f"{scale:.4f}); least top-2 gap {gap:.4f}")
+    if not (got.shape == want.shape and err <= 1e-4 * scale):
+        raise AssertionError("serving prefill: card and CPU logits differ")
+    # The decode path: 16 tokens through decode steps into the KV cache.
+    want, _ = ServeEngine(on_cpu, 64, 1).prefill_into_cache(toks[:, :16])
+    got, _ = ServeEngine(on_card, 64, 1).prefill_into_cache(toks[:, :16])
+    scale = float(want.abs().max())
+    err = float((got.cpu() - want).abs().max())
+    _line("reference", f"16 decode steps: last logits max abs diff card vs "
+          f"CPU {err:.3e} (limit 1e-4 x {scale:.4f})")
+    if not err <= 1e-4 * scale:
+        raise AssertionError("serving decode: card and CPU logits differ")
+    prompts = [rng.integers(0, cfg.vocab_size, size=rng.integers(4, 12))
+               .astype(np.int32) for _ in range(3)]
+    out_cpu = ServeEngine(on_cpu, 64, 2).generate(prompts, max_new_tokens=8)
+    out_card = ServeEngine(on_card, 64, 2).generate(prompts, max_new_tokens=8)
+    same = all(np.array_equal(a, b) for a, b in zip(out_cpu, out_card))
+    _line("reference", f"greedy generate, 3 requests, 2 slots, 8 new tokens: "
+          f"card {[o.tolist() for o in out_card]}, identical to CPU: {same}")
+    if not same or len(out_card) != 3:
+        raise AssertionError("serving generate: card and CPU tokens differ")
+
+
+def _serving_main_path(dev, kernel_mods):
+    """Phase 10: the serving main path at full width and depth.  Returns
+    every kernel's launches in it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import serve_demo
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(SERVE_ARCH, dtype="float32", param_dtype="float32",
+                     attention_impl="kernel")
+    model = build_model(cfg, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    engine = ServeEngine(model, max_len=64, batch_size=4)
+    toks = torch.as_tensor(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S)).astype(np.int32),
+        device=dev)
+    batch = {"tokens": toks}
+
+    for mod in kernel_mods.values():
+        mod.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = engine.prefill(batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    prefill_launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+    if tuple(logits.shape) != (PREFILL_B, PREFILL_S, cfg.vocab_size):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits not finite")
+    del logits
+    demo = serve_demo(SERVE_ARCH, smoke=False, device=dev)
+    launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+    _line("serve", f"{SERVE_ARCH} full width ({cfg.n_layers} layers, "
+          f"{n_params} parameters, float32): prefill {PREFILL_B} x "
+          f"{PREFILL_S} first call {first_s:.3f} s, launches {prefill_launches}")
+    _line("serve", f"serve_demo: {demo['requests']} requests, {demo['tokens']} "
+          f"tokens in {demo['seconds']:.3f} s ({demo['tok_per_s']:.1f} tok/s);"
+          f" samples {demo['outputs']}")
+    _line("serve", f"launches over prefill + serve_demo: {launches}")
+    if prefill_launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{prefill_launches['flash_attention']} times in "
+                             f"one prefill, expected {cfg.n_layers}")
+    if demo["requests"] != 12 or demo["tokens"] != 12 * 16:
+        raise AssertionError(f"serve_demo served {demo['requests']} requests, "
+                             f"{demo['tokens']} tokens")
+
+    # Wall times (host clock, synchronised; median of 3 after a warm call).
+    prefill_ms = _wall_ms(lambda: engine.prefill(batch))
+    n_tok = PREFILL_B * PREFILL_S
+    cache = model.init_cache(4, 64)
+    cache["pos"].fill_(32)
+    step_tok = torch.as_tensor(np.arange(4, dtype=np.int32)[:, None],
+                               device=dev)
+    step_ms = _wall_ms(lambda: engine.serve_step(cache, step_tok), reps=9)
+    _line("serve", f"prefill {PREFILL_B} x {PREFILL_S}: {prefill_ms:.3f} ms, "
+          f"{n_tok / prefill_ms * 1e3:.1f} tokens/s; decode step (4 slots, "
+          f"position 32): {step_ms:.3f} ms, {4 / step_ms * 1e3:.1f} tokens/s")
+    for label, fn in (("prefill", lambda: engine.prefill(batch)),
+                      ("decode step", lambda: engine.serve_step(cache,
+                                                                step_tok))):
+        wall, seen, dev_us = _device_profile(fn)
+        busy_ms = sum(dev_us(e) for e in seen) / 1e3
+        _line("profile", f"one {label} under the profiler: wall "
+              f"{wall * 1e3:.3f} ms, {sum(e.count for e in seen)} kernels, "
+              f"device busy {busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.1f}%"
+              f" of the profiled wall)")
+        for e in sorted(seen, key=dev_us, reverse=True)[:8]:
+            _line("profile", f"{dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
+                  f"{e.key[:100]}")
+    del model, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _serving_kernel_times(dev, rng, errs, path_launches):
+    """Phase 11: each serving kernel's time at the path's shapes beside its
+    plain version's, its bound and one PyTorch call's.  Returns the
+    kernels' entries of the JSON line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.rmsnorm import kernel as rn_kernel
+    from repro_torch.kernels.rmsnorm.ref import rms_norm_plain
+
+    def normal(shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev)
+
+    mods = {"flash_attention": fa_kernel, "decode_attention": da_kernel,
+            "rmsnorm": rn_kernel}
+    before = {n: m.LAUNCHES for n, m in mods.items()}
+    rows = {}
+
+    # flash_attention at one prefill layer: (4, 2048, 16/16, 64), causal.
+    b, s, h, d = PREFILL_B, PREFILL_S, 16, 64
+    q, k, v = normal((b, s, h, d)), normal((b, s, h, d)), normal((b, s, h, d))
+    pairs = _attention_pairs(s, s, True, 0) * b * h
+    rows["flash_attention"] = dict(
+        ms=_gpu_ms(lambda: fa_kernel.flash_attention_cuda(q, k, v), iters=20),
+        plain_ms=_gpu_ms(lambda: flash_attention_plain(q, k, v), iters=3),
+        library_ms=_gpu_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True), iters=20),
+        n_bytes=4 * q.numel() * 4, n_ops=4 * d * pairs,
+        shape=f"B={b} S={s} H={h} D={d} causal")
+
+    # decode_attention: 8 slots, every position of a 4096-token cache valid.
+    b, s, h, d = DECODE_B, DECODE_S, DECODE_H, DECODE_D
+    qd = normal((b, h, d))
+    kc, vc = normal((b, s, h, d)), normal((b, s, h, d))
+    lens = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    valid = int((lens.cpu().numpy().astype(np.int64) + 1).sum())
+    mask = (torch.arange(s, device=dev)[None, :] <= lens[:, None].long())
+    mask = mask[:, None, None, :]
+    rows["decode_attention"] = dict(
+        ms=_gpu_ms(lambda: da_kernel.decode_attention_cuda(qd, kc, vc, lens)),
+        plain_ms=_gpu_ms(lambda: decode_attention_plain(qd, kc, vc, lens),
+                         iters=20),
+        library_ms=_gpu_ms(lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=mask)),
+        n_bytes=valid * h * d * 4 * 2 + 2 * qd.numel() * 4 + b * 4,
+        n_ops=4 * d * h * valid,
+        shape=f"B={b} S={s} H={h} D={d} lengths {s - 1}")
+
+    # rmsnorm over the serving path's activations: (8192, 1024) float32.
+    x = normal((RMS_T, RMS_D))
+    sc = torch.as_tensor(rng.normal(1.0, 0.1, (RMS_D,)).astype(np.float32),
+                         device=dev)
+    rows["rmsnorm"] = dict(
+        ms=_gpu_ms(lambda: rn_kernel.rms_norm_cuda(x, sc)),
+        plain_ms=_gpu_ms(lambda: rms_norm_plain(x, sc)),
+        library_ms=_gpu_ms(lambda: F.rms_norm(x, (RMS_D,), sc, 1e-6)),
+        n_bytes=2 * x.numel() * 4 + RMS_D * 4, n_ops=4 * x.numel(),
+        shape=f"T={RMS_T} D={RMS_D} float32")
+
+    sources = {
+        "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/"
+                            "flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:37"),
+        "decode_attention": ("src/repro_torch/kernels/decode_attention/csrc/"
+                             "decode_attention.cu",
+                             "src/repro/kernels/decode_attention/kernel.py:30"),
+        "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/kernel.py:20"),
+    }
+    entries = []
+    for name, r in rows.items():
+        bytes_ms = r["n_bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = r["n_ops"] / F32_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        timed = mods[name].LAUNCHES - before[name]
+        _line("kernel", f"{name} {r['shape']}: {r['ms'] * 1e3:.3f} us, plain "
+              f"{r['plain_ms'] * 1e3:.3f} us, library {r['library_ms'] * 1e3:.3f}"
+              f" us, bound {bound_ms * 1e3:.3f} us ({r['n_bytes']} B, "
+              f"{r['n_ops']} f32 ops); {timed} launches timed")
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": sources[name][0],
+            "replaces": sources[name][1],
+            "launches": path_launches[name],
+            "max_abs_err": errs[name]["f32"],
+            "max_abs_err_bf16": errs[name]["bf16"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": r["library_ms"],
+            "phase_launches": {"8": errs[name]["launches"], "11": timed},
+        })
+    return entries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -118,7 +557,11 @@ def main() -> int:
         return 2
     from repro_torch.core import isc, matching, regression
     from repro_torch.core.synpa import fused_pad, make_fused_step
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.pair_score import kernel as ps_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rn_kernel
     from repro_torch.kernels.pair_score.ref import DIAG, pair_costs_plain
     from repro_torch.smt import scan_engine, training
     from repro_torch.smt.machine import MachineParams, PhaseTables, SMTMachine
@@ -140,13 +583,16 @@ def main() -> int:
     _line("device", f"{kind}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
-    # 2. Build.
-    build_s = ps_kernel.load()
-    _line("build", f"pair_score: {build_s:.2f} s "
-          f"({ps_kernel.library_path().relative_to(ROOT)})")
-    for ln in ps_kernel.BUILD_LOG.splitlines():
-        if "ptxas" in ln:
-            _line("build", ln.strip())
+    # 2. Build every kernel at once, one nvcc per source.
+    kernel_mods = {"pair_score": ps_kernel, "flash_attention": fa_kernel,
+                   "decode_attention": da_kernel, "rmsnorm": rn_kernel}
+    build_s = _build.load_all([m.LIB for m in kernel_mods.values()])
+    _line("build", f"all {len(kernel_mods)} kernels in {build_s:.2f} s")
+    for name, mod in kernel_mods.items():
+        _line("build", f"{name}: {mod.LIB.load_s:.2f} s "
+              f"({mod.LIB.library_path().relative_to(ROOT)})")
+        for ln in _ptxas_summary(mod.LIB.build_log):
+            _line("build", f"  {ln}")
 
     # 3. Kernel against its plain version.
     max_err = 0.0
@@ -208,7 +654,8 @@ def main() -> int:
     # 6. The main path.
     profiles = scaled_workload(N_APPS, seed=N_APPS)
     policies = _policies(model, scan_engine, isc)
-    ps_kernel.LAUNCHES = 0
+    for mod in kernel_mods.values():
+        mod.LAUNCHES = 0
     regression.NEED_FB_SYNCS = 0
     regression.FALLBACK_RUNS = 0
     matching.TWO_OPT_SYNCS = 0
@@ -297,24 +744,8 @@ def main() -> int:
           f"run): {per_q * 1e3:.3f} ms; reruns identical: {same}")
 
     # Where one race's time goes, by kernel, under the profiler.
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        race(dt, init_mpart, init_st, draws)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-
-    kernels_seen = [e for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", 0.0)
-                or getattr(e, "self_cuda_time_total", 0.0))
-
+    prof_wall, kernels_seen, dev_us = _device_profile(
+        lambda: race(dt, init_mpart, init_st, draws))
     busy_ms = sum(dev_us(e) for e in kernels_seen) / 1e3
     n_kernels = sum(e.count for e in kernels_seen)
     _line("profile", f"one race under the profiler: wall {prof_wall * 1e3:.3f}"
@@ -416,6 +847,12 @@ def main() -> int:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
     }]
+
+    # 8-11. The serving path.
+    serve_errs = _serving_kernels_check(dev, rng)
+    _serving_reference(dev)
+    path_launches = _serving_main_path(dev, kernel_mods)
+    kernels += _serving_kernel_times(dev, rng, serve_errs, path_launches)
     _line("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

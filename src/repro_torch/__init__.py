@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the SYNPA thread-to-core allocation system.
+"""PyTorch/CUDA port of the SYNPA thread-to-core allocation system and of
+its language-model serving path.
 
 The package mirrors ``repro`` module for module (``repro_torch.core.isc``
 is the twin of ``repro.core.isc``, and so on).  It imports ``torch`` and

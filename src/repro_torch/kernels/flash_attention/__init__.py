@@ -1,0 +1,2 @@
+"""Prefill flash attention: CUDA kernel (``kernel``), plain torch version
+(``ref``) and the device dispatch (``ops``)."""

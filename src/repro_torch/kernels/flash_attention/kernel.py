@@ -1,0 +1,56 @@
+"""Launch the hand-written CUDA flash-attention kernel.
+
+The source is ``csrc/flash_attention.cu`` (a plain C entry,
+``flash_attention_launch``), built and loaded by
+:mod:`repro_torch.kernels._build` at first use.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels._build import FLOAT, INT, PTR, CudaLibrary, check_inputs
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+LIB = CudaLibrary(SOURCE, {"flash_attention_launch": (
+    PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT, FLOAT, INT,
+    PTR)})
+HEAD_DIMS = (64, 128, 256)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: Launches of the CUDA kernel in this process;
+#: :func:`flash_attention_cuda` adds one per launch and nothing else
+#: touches it.
+LAUNCHES = 0
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Launch the kernel: q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), all CUDA,
+    contiguous, one of float32/bfloat16 -> (B, Sq, Hq, D) in q's dtype.
+    Launches on the current stream and does not synchronise."""
+    global LAUNCHES
+    check_inputs("flash_attention_cuda", (q.dtype,), q=q, k=k, v=v)
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention_cuda: q is {q.dtype}, not f32/bf16")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention_cuda: q must be (B, Sq, Hq, D) and "
+                         "k, v one (B, Skv, Hkv, D) shape; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
+        raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not match")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim {d} not in {HEAD_DIMS}")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    LIB.launch("flash_attention_launch", q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), out.data_ptr(), b, sq, skv, hq, hkv, d,
+               int(bool(causal)), int(window), d ** -0.5, DTYPES[q.dtype],
+               stream)
+    LAUNCHES += 1
+    return out

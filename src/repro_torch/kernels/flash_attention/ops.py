@@ -1,0 +1,20 @@
+"""Public entry of the flash-attention kernel: device dispatch."""
+
+from __future__ import annotations
+
+from repro_torch.kernels.flash_attention import kernel
+from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
+
+    A CUDA tensor goes to the hand-written kernel, a CPU tensor to the
+    plain torch version; there is no fallback between them.  Ragged
+    lengths need no padding: both mask past Skv themselves.
+    """
+    if q.device.type == "cuda":
+        return kernel.flash_attention_cuda(q, k, v, causal, window)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention: no path for device {q.device}")
+    return flash_attention_plain(q, k, v, causal, window)

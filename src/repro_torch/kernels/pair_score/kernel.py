@@ -1,90 +1,30 @@
-"""Build, load and launch the hand-written CUDA ``pair_score`` kernel.
+"""Launch the hand-written CUDA ``pair_score`` kernel.
 
 The source is ``csrc/pair_score.cu`` (a plain C entry,
-``pair_score_launch``).  At first use it is compiled with ``nvcc`` for
-``sm_90a`` into ``build/repro_torch/`` at the root of the checkout, keyed
-on a hash of the source so that an edit rebuilds, and loaded with
-``ctypes``.  Nothing is built or imported from the GPU toolchain when this
-module is imported.
+``pair_score_launch``), built and loaded by :mod:`repro_torch.kernels._build`
+at first use.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels._build import BUILD_DIR, INT, NVCC_FLAGS, PTR, CudaLibrary
+
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCE", "LIB", "LAUNCHES",
+           "library_path", "pair_score_cuda"]
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "pair_score.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+LIB = CudaLibrary(SOURCE, {"pair_score_launch": (PTR, PTR, PTR, INT, INT,
+                                                 INT, PTR)})
 
 #: Launches of the CUDA kernel in this process; :func:`pair_score_cuda`
 #: adds one per launch and nothing else touches it.
 LAUNCHES = 0
-#: The compiler's report (``-Xptxas -v``: registers, shared memory,
-#: spills) of the build this process loaded, or "" when it found a cached
-#: library.
-BUILD_LOG = ""
 
-_FN = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    nvcc = Path(cuda_home) / "bin" / "nvcc"
-    if nvcc.exists():
-        return str(nvcc)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def library_path() -> Path:
-    """Where the library built from the current source lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"pair_score_{digest}.so"
-
-
-def load() -> float:
-    """Build (if needed) and load the kernel library; returns the seconds
-    spent doing so in this call."""
-    global _FN, BUILD_LOG
-    if _FN is not None:
-        return 0.0
-    t0 = time.perf_counter()
-    lib_path = library_path()
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {SOURCE.name}:\n{proc.stdout}{proc.stderr}"
-            )
-        BUILD_LOG = proc.stdout + proc.stderr
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.pair_score_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    _FN = fn
-    return time.perf_counter() - t0
+library_path = LIB.library_path
 
 
 def pair_score_cuda(st: torch.Tensor, coeffs: torch.Tensor,
@@ -114,12 +54,9 @@ def pair_score_cuda(st: torch.Tensor, coeffs: torch.Tensor,
         raise ValueError(f"pair_score_cuda: n_categories={n_categories}")
     p = st.shape[0]
     n_valid = p if n_valid is None else int(n_valid)
-    load()
     out = torch.empty((p, p), dtype=torch.float32, device=st.device)
     stream = torch.cuda.current_stream(st.device).cuda_stream
-    err = _FN(st.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-              p, n_valid, n_categories, stream)
-    if err != 0:
-        raise RuntimeError(f"pair_score kernel launch failed: cudaError {err}")
+    LIB.launch("pair_score_launch", st.data_ptr(), coeffs.data_ptr(),
+               out.data_ptr(), p, n_valid, n_categories, stream)
     LAUNCHES += 1
     return out

@@ -1,0 +1,143 @@
+"""Serving engine: prefill, decode steps and simple continuous batching.
+
+``serve_step`` produces one new token for every slot of the batch against
+the KV cache.  ``generate`` is the host-side continuous-batching loop:
+finished sequences are replaced in place so the decode batch stays full
+(slot reuse).  The engine runs on its model's device; parameters live in
+the model, so no method takes them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import Model
+
+
+@dataclasses.dataclass
+class ServeEngine:
+    model: Model
+    max_len: int
+    batch_size: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    # ----------------------------------------------------------- prefill
+    @torch.no_grad()
+    def prefill(self, batch) -> torch.Tensor:
+        """Full-sequence forward of ``batch["tokens"]`` (B, S) -> logits
+        (B, S, V) float32; attention routes on ``cfg.attention_impl``."""
+        logits, _aux = self.model.forward(batch)
+        return logits
+
+    @torch.no_grad()
+    def prefill_into_cache(self, tokens, extras: Optional[Dict] = None):
+        """Sequential prefill through decode steps (the semantics path; the
+        flash prefill above is the fast one)."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        b, s = tokens.shape
+        cache = self.model.init_cache(b, self.max_len, extras=extras)
+        logits = None
+        for t in range(s):
+            logits, cache = self.model.decode_step(cache, tokens[:, t:t + 1])
+        return logits, cache
+
+    # ------------------------------------------------------------- step
+    @torch.no_grad()
+    def serve_step(self, cache, tokens):
+        """One new token for the whole running batch."""
+        return self.model.decode_step(cache, tokens)
+
+    # ---------------------------------------------- continuous batching
+    def reset_slots(self, cache, slot_mask: np.ndarray):
+        """Reset the position of every True slot to 0.  Stale KV entries
+        need no clearing: the per-slot position mask hides them."""
+        reset = torch.as_tensor(np.asarray(slot_mask, bool), device=self.device)
+        cache = dict(cache)
+        cache["pos"] = torch.where(reset, torch.zeros_like(cache["pos"]),
+                                   cache["pos"])
+        return cache
+
+    def generate(
+        self,
+        prompts: List[np.ndarray],
+        max_new_tokens: int = 32,
+        eos_id: int = -1,
+        greedy: bool = True,
+        extras: Optional[Dict] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> List[np.ndarray]:
+        """Continuous-batching host loop over ``batch_size`` decode slots.
+
+        Requests queue up; whenever a slot finishes (EOS or token budget) it
+        is reset and the next queued prompt streams in while the other
+        slots keep decoding.  Sampling (``greedy=False``) draws from
+        ``generator``, a ``torch.Generator`` on the model's device (seeded
+        0 when not given).
+        """
+        if not greedy and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        queue = list(enumerate(prompts))
+        results: Dict[int, List[int]] = {}
+        b = self.batch_size
+        cache = self.model.init_cache(b, self.max_len, extras=extras)
+        slot_req = [-1] * b                   # request id per slot
+        slot_left = [0] * b                   # generation budget left
+        feed: List[List[int]] = [[] for _ in range(b)]
+        cur = np.zeros((b, 1), np.int32)
+
+        def assign(slot: int) -> bool:
+            if not queue:
+                slot_req[slot] = -1
+                feed[slot] = []
+                return False
+            rid, prompt = queue.pop(0)
+            slot_req[slot] = rid
+            slot_left[slot] = max_new_tokens
+            results[rid] = []
+            feed[slot] = [int(t) for t in prompt]
+            return True
+
+        for s in range(b):
+            assign(s)
+
+        while any(r >= 0 for r in slot_req):
+            step_tok = np.zeros((b, 1), np.int32)
+            feeding = [False] * b
+            for s in range(b):
+                if feed[s]:
+                    step_tok[s, 0] = feed[s].pop(0)
+                    feeding[s] = True
+                else:
+                    step_tok[s, 0] = cur[s, 0]
+            logits, cache = self.serve_step(
+                cache, torch.as_tensor(step_tok, device=self.device))
+            last = logits[:, -1]
+            if greedy:
+                nxt = torch.argmax(last, dim=-1)
+            else:
+                nxt = torch.multinomial(torch.softmax(last.float(), dim=-1), 1,
+                                        generator=generator)[:, 0]
+            nxt = nxt.cpu().numpy()
+            reset_mask = np.zeros(b, bool)
+            for s in range(b):
+                rid = slot_req[s]
+                if rid < 0:
+                    continue
+                if feeding[s] and feed[s]:
+                    continue                   # still streaming the prompt
+                results[rid].append(int(nxt[s]))
+                slot_left[s] -= 1
+                if slot_left[s] <= 0 or int(nxt[s]) == eos_id:
+                    if assign(s):
+                        reset_mask[s] = True   # new request takes the slot
+            if reset_mask.any():
+                cache = self.reset_slots(cache, reset_mask)
+            cur = nxt[:, None].astype(np.int32)
+        return [np.array(results[i]) for i in sorted(results)]

@@ -18,6 +18,8 @@ import numpy as np  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import isc  # noqa: E402
+from repro_torch.launch.serve import serve_demo  # noqa: E402
+from repro_torch.models.registry import build_model, get_config  # noqa: E402
 from repro_torch.smt import machine, scan_engine, training, workloads  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -68,11 +70,29 @@ def _tiny():
     return profs, pols
 
 
+def _params_tree(model):
+    """A model's weights as the reference's ``Model.init`` tree of numpy
+    arrays, blocks stacked on a leading layer axis."""
+    tree, stacked = {}, {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            stacked.setdefault(tuple(parts[2:]), []).append(p.detach().numpy())
+        else:
+            tree.setdefault(parts[0], {})[parts[1]] = p.detach().numpy()
+    for (mod, leaf), arrs in stacked.items():
+        tree.setdefault("blocks", {}).setdefault(mod, {})[leaf] = np.stack(arrs)
+    return tree
+
+
 @pytest.mark.parametrize("entry", [
     "resolve_device", "run_quanta_scan", "build_all_models",
-    "category_model_from_numpy", "device_tables_from_numpy"])
+    "category_model_from_numpy", "device_tables_from_numpy", "build_model",
+    "serve_demo", "model_params_from_numpy"])
 def test_entry_points_raise_without_gpu(no_gpu, entry):
     profs, pols = _tiny()
+    cfg = get_config("qwen1.5-0.5b", smoke=True, dtype="float32",
+                     param_dtype="float32")
     calls = {
         "resolve_device": lambda **kw: repro_torch.resolve_device(**kw),
         "run_quanta_scan": lambda **kw: scan_engine.run_quanta_scan(
@@ -88,6 +108,12 @@ def test_entry_points_raise_without_gpu(no_gpu, entry):
         "device_tables_from_numpy": lambda **kw:
             convert.device_tables_from_numpy(machine.PhaseTables.build(profs),
                                              **kw),
+        "build_model": lambda **kw: build_model(cfg, **kw),
+        "serve_demo": lambda **kw: serve_demo(
+            "qwen1.5-0.5b", smoke=True, n_requests=2, max_new=2, **kw),
+        "model_params_from_numpy": lambda **kw:
+            convert.model_params_from_numpy(
+                _params_tree(build_model(cfg, device="cpu")), cfg, **kw),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
