@@ -29,7 +29,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 8. the serving kernels (``flash_attention``, ``decode_attention``,
    ``rmsnorm``) against their plain versions on the card, at the reference
    tests' shapes and the serving path's (1e-4 abs/rel in float32, 2e-2 in
-   bfloat16);
+   bfloat16), and flash attention at the edges of its tensor-core design
+   (``FLASH_EDGES``, both types; rows that see no key exactly 0);
 9. the serving path's reference check, card against CPU: qwen1.5-0.5b at
    full width and depth 2, the same seeded weights on both: prefill logits
    of 1 x 256 tokens and the logits after 16 decode steps (1e-4 of the
@@ -42,7 +43,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    the prefill and decode-step wall times and a profiler breakdown of each;
 11. each serving kernel's time at the path's shapes beside its plain
    version's, the card's bound and one PyTorch call's (used nowhere in the
-   port) for the same work.
+   port) for the same work.  Flash attention's bound counts its float32
+   products as three TF32 products on the tensor cores (495 TFLOP/s); the
+   float32 SIMT bound of the earlier design is printed beside it, the
+   SDPA backend that ran the yardstick is named by its kernels, the
+   pre-pass and the attention kernel are timed apart under the profiler,
+   and the bfloat16 kernel is timed at the same shape.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -71,6 +77,12 @@ TOL = 2e-5
 #: float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: TF32 on the tensor cores, dense; the flash kernel's float32 products are
+#: three TF32 products each (3xTF32).
+TF32_OPS_PER_S = 495e12
+TF32_PER_F32 = 3
+#: bfloat16 on the tensor cores, dense.
+BF16_OPS_PER_S = 989e12
 #: Serving: the architecture, the prefill batch and its sequence length.
 SERVE_ARCH = "qwen1.5-0.5b"
 PREFILL_B, PREFILL_S = 4, 2048
@@ -78,6 +90,26 @@ PREFILL_B, PREFILL_S = 4, 2048
 DECODE_B, DECODE_S, DECODE_H, DECODE_D = 8, 4096, 16, 64
 RMS_T, RMS_D = 8192, 1024
 TOL_F32, TOL_BF16 = 1e-4, 2e-2
+#: Flash attention's edge cases: (B, Sq, Skv, Hq, Hkv, D, causal, window,
+#: q scale).  Lengths that are multiples of no tile, Sq != Skv both ways,
+#: GQA groups 1, 4 and 8, windows whose first key falls mid-tile, q scaled
+#: by 8 (logits x 8), and, in the last three, a causal window of 20 over 70
+#: keys, which leaves rows 89-199 seeing no key: such rows must be exactly
+#: 0.  tests/test_torch_attention_gpu.py::FLASH_EDGES must match this list.
+FLASH_EDGES = [
+    (1, 333, 251, 4, 4, 64, True, 0, 1.0),
+    (2, 190, 517, 8, 2, 64, False, 0, 1.0),
+    (1, 300, 300, 8, 8, 64, True, 37, 1.0),
+    (1, 300, 300, 8, 2, 64, True, 100, 8.0),
+    (1, 300, 300, 8, 1, 64, False, 77, 1.0),
+    (1, 129, 131, 4, 1, 128, True, 45, 1.0),
+    (1, 257, 70, 2, 2, 128, False, 0, 8.0),
+    (1, 97, 161, 4, 1, 256, True, 0, 1.0),
+    (1, 161, 97, 2, 1, 256, False, 33, 8.0),
+    (1, 200, 70, 2, 1, 64, True, 20, 1.0),
+    (1, 200, 70, 2, 1, 128, True, 20, 1.0),
+    (1, 200, 70, 2, 1, 256, True, 20, 1.0),
+]
 
 
 def _line(tag: str, text: str) -> None:
@@ -156,10 +188,21 @@ def _ptxas_summary(log: str):
         elif "spill" in ln:
             spill = ln
         elif "ptxas info" in ln and "Used" in ln:
-            # The mangled name's tail after "kernel" carries the template
-            # arguments (I...E), which tell the instantiations apart.
-            short = name[name.find("kernel"):] if "kernel" in name else name
-            out.append(f"{short[:48]}: {ln.split(':', 1)[1].strip()}; {spill}")
+            # The mangled name: the identifier that ends in "kernel" and
+            # its template arguments (I...E), which tell the
+            # instantiations apart.
+            short = name
+            at = name.find("kernel")
+            if at >= 0:
+                start = at
+                while start > 0 and (name[start - 1].isalpha()
+                                     or name[start - 1] == "_"):
+                    start -= 1
+                end = at + len("kernel")
+                if name.startswith("I", end) and "EE" in name[end:]:
+                    end = name.find("EE", end) + 2
+                short = name[start:end]
+            out.append(f"{short[:56]}: {ln.split(':', 1)[1].strip()}; {spill}")
     return out
 
 
@@ -257,19 +300,38 @@ def _serving_kernels_check(dev, rng):
              for b, s, hq, hkv, d in ((1, 128, 1, 1, 64), (2, 256, 8, 2, 64),
                                       (1, 200, 8, 8, 128), (1, 384, 4, 1, 256))
              for causal, window in ((True, 0), (True, 64), (False, 0))]
-    cases.append(((1, 256, 4, 2, 64), True, 0, torch.bfloat16))
-    cases.append(((PREFILL_B, PREFILL_S, 16, 16, 64), True, 0, torch.float32))
-    for (b, s, hq, hkv, d), causal, window, dtype in cases:
-        q = normal((b, s, hq, d), dtype)
-        k = normal((b, s, hkv, d), dtype)
-        v = normal((b, s, hkv, d), dtype)
+    cases = [((b, s, s, hq, hkv, d), causal, window, dtype, 1.0)
+             for (b, s, hq, hkv, d), causal, window, dtype in cases]
+    cases.append(((1, 256, 256, 4, 2, 64), True, 0, torch.bfloat16, 1.0))
+    cases.append(((PREFILL_B, PREFILL_S, PREFILL_S, 16, 16, 64), True, 0,
+                  torch.float32, 1.0))
+    # The tensor-core design's edges, in both types (as
+    # tests/test_torch_attention_gpu.py::FLASH_EDGES): lengths that are
+    # multiples of no tile, Sq != Skv, GQA groups 1, 4 and 8, windows
+    # starting mid-tile, q x 8 (logits x 8), fully masked rows.
+    for *shape, causal, window, q_scale in FLASH_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append((tuple(shape), causal, window, dtype, q_scale))
+    for (b, sq, skv, hq, hkv, d), causal, window, dtype, q_scale in cases:
+        q = (normal((b, sq, hq, d)) * q_scale).to(dtype)
+        k = normal((b, skv, hkv, d), dtype)
+        v = normal((b, skv, hkv, d), dtype)
         got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
         want = flash_attention_plain(q, k, v, causal, window)
         torch.cuda.synchronize()
-        what = (f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal={causal} "
-                f"window={window} {str(dtype)[6:]}")
+        what = (f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} D={d} "
+                f"causal={causal} window={window} q x{q_scale:g} "
+                f"{str(dtype)[6:]}")
         err = record("flash_attention", dtype, got, want, what)
-        _line("kernel", f"flash_attention {what}: max abs err {err:.3e}")
+        i = np.arange(sq)
+        hi = np.minimum(i + 1, skv) if causal else np.full(sq, skv)
+        lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(sq)
+        dead = torch.as_tensor(hi <= lo, device=dev)
+        if not bool((got[:, dead] == 0).all()):
+            raise AssertionError(f"flash_attention {what}: a row that sees "
+                                 "no key is not 0")
+        _line("kernel", f"flash_attention {what}: max abs err {err:.3e}, "
+              f"{int(dead.sum())} rows see no key and are 0")
 
     # decode_attention: the reference tests' shapes with window 0 and 200,
     # one bfloat16 case and a serving shape with mixed lengths.
@@ -438,6 +500,13 @@ def _serving_main_path(dev, kernel_mods):
         for e in sorted(seen, key=dev_us, reverse=True)[:8]:
             _line("profile", f"{dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
                   f"{e.key[:100]}")
+        for name in ("prep_kernel", "flash_attention_kernel"):
+            mine = [e for e in seen if name in e.key]
+            if not mine:
+                continue
+            _line("profile", f"{label}: flash's {name}: "
+                  f"{sum(dev_us(e) for e in mine) / 1e3:.3f} ms in "
+                  f"{sum(e.count for e in mine)} launches")
     del model, engine
     torch.cuda.empty_cache()
     return launches
@@ -478,7 +547,63 @@ def _serving_kernel_times(dev, rng, errs, path_launches):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True), iters=20),
         n_bytes=4 * q.numel() * 4, n_ops=4 * d * pairs,
+        ops_per_s=TF32_OPS_PER_S / TF32_PER_F32,
+        bound_rate="float32 ops as 3 TF32 products at 495 TFLOP/s",
         shape=f"B={b} S={s} H={h} D={d} causal")
+    # Which SDPA backend ran the float32 yardstick: the aten operator it
+    # dispatched to and the CUDA kernels it launched, under the profiler.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    sdpa_ops = sorted({e.key for e in events
+                       if e.key.startswith("aten::_scaled_dot_product")
+                       or e.key.startswith("aten::_cudnn_attention")})
+    sdpa_kernels = sorted({e.key[:80] for e in events
+                           if e.device_type == DeviceType.CUDA})
+    rows["flash_attention"]["library_backend"] = "; ".join(
+        sdpa_ops + sdpa_kernels)
+    simt_ms = 4 * d * pairs / F32_OPS_PER_S * 1e3
+    _line("kernel", f"flash_attention: SDPA (float32, is_causal) ran "
+          f"{sdpa_ops}, kernels {sdpa_kernels}; the float32 SIMT bound of "
+          f"the earlier design, for comparison: {simt_ms * 1e3:.3f} us")
+    # The wrapper's two kernels apart: the pre-pass (reads K and V once,
+    # writes their planes into the scratch) and the attention kernel.
+    units = fa_kernel.LIB.call("flash_attention_scratch", b, s, h, d, 0)
+    prep_bytes = 2 * k.numel() * 4 + 16 * units * 4
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fa_kernel.flash_attention_cuda(q, k, v)
+        torch.cuda.synchronize()
+    for name in ("prep_kernel", "flash_attention_kernel"):
+        mine = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key]
+        us = sum(getattr(e, "self_device_time_total", 0.0)
+                 or getattr(e, "self_cuda_time_total", 0.0)
+                 for e in mine) / max(1, sum(e.count for e in mine))
+        bound = (f"; its bytes bound {prep_bytes / HBM_BYTES_PER_S * 1e6:.3f}"
+                 f" us ({prep_bytes} B)" if name == "prep_kernel" else "")
+        _line("kernel", f"flash_attention {rows['flash_attention']['shape']}:"
+              f" {name} {us:.3f} us a launch under the profiler{bound}")
+    # The bfloat16 route at the same shape: one bf16 tensor-core product
+    # per product.
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    bf16_ms = _gpu_ms(lambda: fa_kernel.flash_attention_cuda(qb, kb, vb),
+                      iters=20)
+    bf16_sdpa_ms = _gpu_ms(lambda: F.scaled_dot_product_attention(
+        qb.transpose(1, 2), kb.transpose(1, 2), vb.transpose(1, 2),
+        is_causal=True), iters=20)
+    _line("kernel", f"flash_attention {rows['flash_attention']['shape']} "
+          f"bfloat16: {bf16_ms * 1e3:.3f} us, SDPA {bf16_sdpa_ms * 1e3:.3f} "
+          f"us; bound {4 * d * pairs / BF16_OPS_PER_S * 1e6:.3f} us by "
+          f"operations (989 TFLOP/s)")
 
     # decode_attention: 8 slots, every position of a 4096-token cache valid.
     b, s, h, d = DECODE_B, DECODE_S, DECODE_H, DECODE_D
@@ -523,13 +648,21 @@ def _serving_kernel_times(dev, rng, errs, path_launches):
     entries = []
     for name, r in rows.items():
         bytes_ms = r["n_bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = r["n_ops"] / F32_OPS_PER_S * 1e3
+        ops_ms = r["n_ops"] / r.get("ops_per_s", F32_OPS_PER_S) * 1e3
         bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        rate = r.get("bound_rate", "float32 ops at 67 TFLOP/s")
         timed = mods[name].LAUNCHES - before[name]
         _line("kernel", f"{name} {r['shape']}: {r['ms'] * 1e3:.3f} us, plain "
               f"{r['plain_ms'] * 1e3:.3f} us, library {r['library_ms'] * 1e3:.3f}"
-              f" us, bound {bound_ms * 1e3:.3f} us ({r['n_bytes']} B, "
-              f"{r['n_ops']} f32 ops); {timed} launches timed")
+              f" us, bound {bound_ms * 1e3:.3f} us by {bound_by} ({rate}) "
+              f"({r['n_bytes']} B, {r['n_ops']} f32 ops; "
+              f"{100 * bound_ms / r['ms']:.1f}% of the bound); "
+              f"{timed} launches timed")
+        extra = {}
+        if name == "flash_attention":
+            extra = {"bound_rate": rate,
+                     "library_backend": r["library_backend"]}
         entries.append({
             "name": name,
             "route": "cuda",
@@ -541,9 +674,10 @@ def _serving_kernel_times(dev, rng, errs, path_launches):
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_by": bound_by,
             "library_ms": r["library_ms"],
             "phase_launches": {"8": errs[name]["launches"], "11": timed},
+            **extra,
         })
     return entries
 

@@ -44,7 +44,8 @@ class CudaLibrary:
     """One CUDA source and the C entry points it exports.
 
     ``entries`` maps each entry's name to its ``ctypes`` argument types;
-    every entry returns the ``cudaError_t`` of its launch as an ``int``.
+    every entry returns an ``int``: a launch entry the ``cudaError_t`` of
+    its launch (:meth:`launch`), a query entry its answer (:meth:`call`).
     """
 
     def __init__(self, source: Path, entries: dict):
@@ -105,6 +106,11 @@ class CudaLibrary:
         self._finish(self._start())
         self.load_s = time.perf_counter() - t0
         return self.load_s
+
+    def call(self, entry: str, *args) -> int:
+        """Call the query ``entry`` (building on first use); its int."""
+        self.load()
+        return self._fns[entry](*args)
 
     def launch(self, entry: str, *args) -> None:
         """Call ``entry`` (building on first use) and raise on a CUDA error."""

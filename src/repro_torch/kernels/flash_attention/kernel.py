@@ -1,8 +1,10 @@
 """Launch the hand-written CUDA flash-attention kernel.
 
-The source is ``csrc/flash_attention.cu`` (a plain C entry,
-``flash_attention_launch``), built and loaded by
-:mod:`repro_torch.kernels._build` at first use.
+The source is ``csrc/flash_attention.cu`` (plain C entries:
+``flash_attention_scratch`` sizes the scratch its float32 pre-pass
+writes, ``flash_attention_launch`` launches the pre-pass and the
+attention kernel), built and loaded by :mod:`repro_torch.kernels._build` at first
+use.
 """
 
 from __future__ import annotations
@@ -14,9 +16,11 @@ import torch
 from repro_torch.kernels._build import FLOAT, INT, PTR, CudaLibrary, check_inputs
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-LIB = CudaLibrary(SOURCE, {"flash_attention_launch": (
-    PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT, FLOAT, INT,
-    PTR)})
+LIB = CudaLibrary(SOURCE, {
+    "flash_attention_launch": (PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT,
+                               INT, INT, INT, INT, FLOAT, INT, PTR),
+    "flash_attention_scratch": (INT, INT, INT, INT, INT),
+})
 HEAD_DIMS = (64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,10 +51,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head dim {d} not in {HEAD_DIMS}")
     out = torch.empty_like(q)
+    # For float32 the kernel's pre-pass writes K and V, split into TF32
+    # hi/lo planes in the layout its tensor-core products read, into this
+    # scratch; bfloat16 needs none.
+    units = LIB.call("flash_attention_scratch", b, skv, hkv, d,
+                     DTYPES[q.dtype])
+    scratch = torch.empty(16 * max(units, 1), dtype=torch.float32,
+                          device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     LIB.launch("flash_attention_launch", q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), out.data_ptr(), b, sq, skv, hq, hkv, d,
-               int(bool(causal)), int(window), d ** -0.5, DTYPES[q.dtype],
-               stream)
+               v.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, sq, skv,
+               hq, hkv, d, int(bool(causal)), int(window), d ** -0.5,
+               DTYPES[q.dtype], stream)
     LAUNCHES += 1
     return out

@@ -9,8 +9,12 @@ This file imports nothing of JAX, so it runs where the port runs::
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_attention_gpu.py
 
-Every test needs a GPU and skips without one.
+Every test but one needs a GPU and skips without one; that one checks that
+``chip_smoke.py`` holds flash attention to the same edge cases.
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -86,15 +90,62 @@ def test_flash_kernel_bfloat16(cuda):
                                **_tol(torch.bfloat16))
 
 
+#: The tensor-core design's edges: (B, Sq, Skv, Hq, Hkv, D, causal, window,
+#: q scale).  Lengths that are multiples of no tile, Sq != Skv both ways,
+#: GQA groups 1, 4 and 8, windows whose first key falls mid-tile, q scaled
+#: by 8 (logits x 8: near one-hot rows, the split's large terms), and, in
+#: the last three, rows that see no key.  chip_smoke.py's FLASH_EDGES must
+#: match this list.
+FLASH_EDGES = [
+    (1, 333, 251, 4, 4, 64, True, 0, 1.0),
+    (2, 190, 517, 8, 2, 64, False, 0, 1.0),
+    (1, 300, 300, 8, 8, 64, True, 37, 1.0),
+    (1, 300, 300, 8, 2, 64, True, 100, 8.0),
+    (1, 300, 300, 8, 1, 64, False, 77, 1.0),
+    (1, 129, 131, 4, 1, 128, True, 45, 1.0),
+    (1, 257, 70, 2, 2, 128, False, 0, 8.0),
+    (1, 97, 161, 4, 1, 256, True, 0, 1.0),
+    (1, 161, 97, 2, 1, 256, False, 33, 8.0),
+    (1, 200, 70, 2, 1, 64, True, 20, 1.0),
+    (1, 200, 70, 2, 1, 128, True, 20, 1.0),
+    (1, 200, 70, 2, 1, 256, True, 20, 1.0),
+]
+
+
+def test_chip_smoke_checks_the_same_flash_edges():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.FLASH_EDGES == FLASH_EDGES
+
+
 @pytest.mark.gpu
-def test_flash_fully_masked_rows_are_zero(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_EDGES)
+def test_flash_kernel_edges(cuda, case, dtype):
+    b, sq, skv, hq, hkv, d, causal, window, q_scale = case
+    rng = np.random.default_rng(sq * 13 + skv + d + window)
+    q = (_normal(rng, (b, sq, hq, d), torch.float32, cuda) * q_scale).to(dtype)
+    k = _normal(rng, (b, skv, hkv, d), dtype, cuda)
+    v = _normal(rng, (b, skv, hkv, d), dtype, cuda)
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal, window)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_fully_masked_rows_are_zero(cuda, d, dtype):
     """Causal rows past every key, with a window, see nothing: 0."""
     rng = np.random.default_rng(5)
-    q = _normal(rng, (1, 160, 2, 64), torch.float32, cuda)
-    k = _normal(rng, (1, 48, 1, 64), torch.float32, cuda)
+    q = _normal(rng, (1, 160, 2, d), dtype, cuda)
+    k = _normal(rng, (1, 48, 1, d), dtype, cuda)
     got = fa_ops.flash_attention(q, k, k, causal=True, window=16)
     assert bool((got[:, 63:] == 0).all())
-    assert bool((got[:, :48].abs().sum(-1) > 0).all())
+    assert bool((got[:, :48].float().abs().sum(-1) > 0).all())
 
 
 # -------------------------------------------------------- decode attention

@@ -3,7 +3,8 @@ the reference's Pallas kernel in interpret mode (3e-4, the reference
 tests' own tolerance; 2e-2 in bfloat16) and against its jnp oracle
 (1e-5 in float32), and the CPU/CUDA dispatch.  The CUDA kernel itself is
 held against the plain version on a GPU in
-``test_torch_attention_gpu.py``."""
+``test_torch_attention_gpu.py``; here a torch emulation of its TF32
+rounding shows why its float32 products are three TF32 products."""
 
 import pytest
 
@@ -102,3 +103,49 @@ def test_source_and_build_location():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("flash_attention_") and path.suffix == ".so"
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+
+
+# ---------------------------------------------- the kernel's 3xTF32 split
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from 0),
+    as ``cvt.rna.tf32.f32`` does; a TF32 x TF32 product is exact in
+    float32, so a float32 matmul of rounded operands emulates the MMA."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a, b, terms):
+    """a @ b as the kernel computes it: ``terms`` 3 is hi.hi + hi.lo +
+    lo.hi with lo = x - hi rounded again; 1 is a single TF32 product."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    return ah @ _tf32(b - bh) + _tf32(a - ah) @ bh + ah @ bh
+
+
+@pytest.mark.parametrize("terms", [3, 1])
+@pytest.mark.parametrize("product", ["qk", "pv"])
+def test_three_tf32_products_keep_the_float32_limit_and_one_does_not(
+        product, terms):
+    """At the serving scale (D 64, S 2048 rows of N(0, 1), causal) the
+    3-term split of Q K^T / sqrt(D) and of P V stays inside the card
+    check's float32 limit (1e-4 abs/rel) against float64; one TF32
+    product misses it, which is why the kernel pays for three."""
+    s, d = 2048, 64
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.as_tensor(rng.normal(size=(s, d)).astype(np.float32))
+               for _ in range(3))
+    scores = (q.double() @ k.double().T) * d ** -0.5
+    if product == "qk":
+        got = _tf32_matmul(q, k.T.contiguous(), terms) * d ** -0.5
+        want = scores
+    else:
+        causal = torch.ones(s, s, dtype=torch.bool).tril()
+        p = torch.softmax(scores.masked_fill(~causal, -1e30), -1).float()
+        got = _tf32_matmul(p, v, terms)
+        want = p.double() @ v.double()
+    excess = ((got.double() - want).abs() / (1e-4 + 1e-4 * want.abs())).max()
+    if terms == 3:
+        assert float(excess) < 0.1
+    else:
+        assert float(excess) > 2.0
