@@ -11,8 +11,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 2. build every hand-written kernel from the checkout's sources (``nvcc``
    for ``sm_90a`` into ``build/repro_torch/``) and print the build time and
    the compiler's register/shared-memory report;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and a few others (2e-5 abs/rel, sentinels exact);
+3. hold ``pair_score`` against its plain PyTorch version on the card, at
+   the main path's shapes and ``PAIR_SCORE_SIZES``, without and with the
+   fused cost preparation (2e-5 abs/rel, sentinels and idle edges exact);
 4. fit the ``SYNPA4_R-FEBE`` Eq. 4 model with the port's own profiling
    campaign (default campaign, ``MachineParams()``, machine seed 0);
 5. a small race (N = 16) on the card against the same race on the CPU,
@@ -23,9 +24,13 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    kernel's launch count set to 0 just before and read just after; then an
    audit of the host synchronisations of one race, its per-quantum wall
    time (median of 3 timed runs after one warm run), a profiler
-   breakdown of one race by kernel and a timing of each layer;
-7. each kernel's time at the main path's shapes beside its plain
-   version's time and the card's bound for the same work;
+   breakdown of one race by kernel, a timing of each layer, and Step 2
+   plus the matcher's cost preparation as the fused step ran it before the
+   fusion (the unfused kernel and eleven tensor ops) against the one fused
+   launch: kernels and device time under the profiler;
+7. ``pair_score``'s time at the main path's shape, unfused and fused
+   (CUDA events, and the kernel alone under the profiler), beside its
+   plain version's time and the card's bound for the same work;
 8. the serving kernels (``flash_attention``, ``decode_attention``,
    ``rmsnorm``) against their plain versions on the card, at the reference
    tests' shapes and the serving path's (1e-4 abs/rel in float32, 2e-2 in
@@ -83,6 +88,11 @@ TF32_OPS_PER_S = 495e12
 TF32_PER_F32 = 3
 #: bfloat16 on the tensor cores, dense.
 BF16_OPS_PER_S = 989e12
+#: Output sizes at which phase 3 holds pair_score to its plain version in
+#: both modes: 2 and 33 hold a single tile (the diagonal one), 33 and 129
+#: end in a partial tile, 4104 and 8200 launch thousands of tiles.
+#: tests/test_torch_pair_score_gpu.py::PAIR_SCORE_SIZES must match.
+PAIR_SCORE_SIZES = [2, 33, 129, 264, 1032, 4104, 8200]
 #: Serving: the architecture, the prefill batch and its sequence length.
 SERVE_ARCH = "qwen1.5-0.5b"
 PREFILL_B, PREFILL_S = 4, 2048
@@ -259,6 +269,194 @@ def _policies(model, scan_engine, isc):
                                          method=isc.SYNPA4_R_FEBE,
                                          model=model),
     }
+
+
+def _pair_score_check(dev, rng, ps_kernel):
+    """Phase 3: pair_score against its plain version on the card, unfused
+    (sentinels only) and fused (the matcher's cost preparation: a valid
+    mask with empty slots, the idle vertex at row n_valid), at
+    PAIR_SCORE_SIZES and a few older shapes.  DIAG and IDLE_COST entries
+    must be exact, the rest within TOL abs/rel.  Returns the max abs
+    error."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.pair_score.ref import (
+        DIAG, IDLE_COST, fixed_entries, pair_costs_plain)
+
+    coeffs = torch.as_tensor(rng.normal(0.3, 0.5, (4, 4)).astype(np.float32),
+                             device=dev)
+    cases = [(p, n_valid, n_cat, False)
+             for p, n_valid, n_cat in ((8, 8, 4), (264, 257, 3),
+                                       (1032, 1024, 4), (1032, 1032, 3))]
+    for p in PAIR_SCORE_SIZES:
+        n_valid = max(1, p - 1 - p // 64)
+        cases += [(p, n_valid, 4, False), (p, n_valid, 4, True)]
+    max_err = 0.0
+    for p, n_valid, n_cat, fused in cases:
+        st = torch.as_tensor(
+            rng.dirichlet(np.ones(4), size=p).astype(np.float32), device=dev)
+        kw = {}
+        if fused:
+            valid = rng.random(n_valid) > 0.15
+            valid[n_valid - 1] = False
+            kw = dict(valid=torch.as_tensor(valid, device=dev),
+                      idle_row=n_valid if n_valid < p else -1, p=p)
+            st = st[:n_valid].clone()
+        got = ps_kernel.pair_score_cuda(st, coeffs, n_cat, n_valid, **kw)
+        want = pair_costs_plain(st, coeffs, n_cat, n_valid, **kw)
+        torch.cuda.synchronize()
+        what = (f"pair_score P={p} n_valid={n_valid} C={n_cat} "
+                f"{'fused' if fused else 'unfused'}")
+        diag, idle = fixed_entries(p, n_valid, kw.get("valid"),
+                                   kw.get("idle_row", -1), dev)
+        if got.shape != want.shape:
+            raise AssertionError(f"{what}: shape {tuple(got.shape)}")
+        for name, mask, value in (("DIAG", diag, DIAG),
+                                  ("IDLE_COST", idle, IDLE_COST)):
+            if not (bool((got[mask] == value).all())
+                    and bool((want[mask] == value).all())):
+                raise AssertionError(
+                    f"{what}: {int((got[mask] != value).sum())} {name} "
+                    f"entries of {int(mask.sum())} differ")
+        fixed = diag | idle
+        err = _close(got[~fixed], want[~fixed], TOL, what)
+        max_err = max(max_err, err)
+        _line("kernel", f"{what}: max abs err {err:.3e} (limit {TOL} "
+              f"abs/rel), {int(diag.sum())} DIAG and {int(idle.sum())} "
+              "IDLE_COST entries exact")
+    return max_err
+
+
+def _cost_prep_layers(dev, model, st, valid_mask, idle: bool) -> None:
+    """Phase 6: Step 2 plus the matcher's cost preparation at the race's
+    shape, as the fused step ran it before the fusion (the unfused kernel
+    and eleven tensor ops, rebuilt here) against the fused call: kernels
+    launched and device time under the profiler, host wall time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import isc, matching, regression
+    from repro_torch.core.synpa import fused_pad
+    from repro_torch.kernels.pair_score import kernel as ps_kernel
+
+    n = st.shape[0]
+    p = fused_pad(n)
+    uniform = torch.as_tensor(isc.uniform_stack(model.n_categories),
+                              device=dev)
+
+    def before():
+        stp = torch.cat([st, uniform[None, :].expand(p - n, -1)], dim=0)
+        cost = ps_kernel.pair_score_cuda(stp, model.coeffs,
+                                         model.n_categories, n)
+        validp = torch.cat(
+            [valid_mask, torch.zeros(p - n, dtype=torch.bool, device=dev)])
+        pairv = validp[:, None] & validp[None, :]
+        cost = torch.where(pairv, cost, matching.BIG)
+        is_idle = (torch.arange(p, device=dev) == n) & idle
+        cost = torch.where(is_idle[:, None] & validp[None, :],
+                           matching.IDLE_COST, cost)
+        return torch.where(validp[:, None] & is_idle[None, :],
+                           matching.IDLE_COST, cost)
+
+    def after():
+        return regression.pair_cost_matrix(
+            model, st, n_valid=n, valid=valid_mask,
+            idle_row=n if idle else -1, p=p)
+
+    if not torch.equal(before(), after()):
+        raise AssertionError("Step 2 + cost prep: the fused call differs "
+                             "from the chain it replaces")
+    reps = 20
+    out = {}
+    for label, fn in (("before", before), ("after", after)):
+        launches = ps_kernel.LAUNCHES
+        _, seen, dev_us = _device_profile(lambda: [fn() for _ in range(reps)])
+        if ps_kernel.LAUNCHES - launches != reps:
+            raise AssertionError(f"Step 2 + cost prep {label}: "
+                                 f"{ps_kernel.LAUNCHES - launches} pair_score "
+                                 f"launches in {reps} calls")
+        walls = []
+        for _ in range(9):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[label] = (sum(e.count for e in seen) / reps,
+                      sum(dev_us(e) for e in seen) / reps,
+                      float(np.median(walls)))
+    (k0, us0, w0), (k1, us1, w1) = out["before"], out["after"]
+    # The profiler may drop an event of a window (section 7 of PERF.md):
+    # the kernels a call launches are the per-call count rounded.
+    _line("layers", f"Step 2 + cost prep, P={p} n={n} idle={idle}: before "
+          f"(unfused kernel + tensor ops) {round(k0)} kernels ({k0:g} seen "
+          f"a call), {us0:.3f} us device, {w0:.3f} ms wall; after (fused "
+          f"kernel) {round(k1)} kernel ({k1:g} seen a call), {us1:.3f} us "
+          f"device, {w1:.3f} ms wall; outputs identical")
+    if round(k1) != 1:
+        raise AssertionError(f"the fused cost matrix took {k1:g} kernels")
+
+
+def _pair_score_times(dev, rng, model, ps_kernel):
+    """Phase 7: pair_score at the race's shape (P = fused_pad(1024),
+    n_valid = 1024, four categories, the fitted coefficients) in both
+    modes: CUDA events over back-to-back launches, the kernel alone under
+    the profiler, the plain version, and the bound.  Returns
+    ``{mode: (ms, profiled us, plain ms, bound ms, bound_by)}``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.synpa import fused_pad
+    from repro_torch.kernels.pair_score.ref import pair_costs_plain
+
+    p, n_valid = fused_pad(N_APPS), N_APPS
+    st = torch.as_tensor(
+        rng.dirichlet(np.ones(4), size=n_valid).astype(np.float32),
+        device=dev)
+    st_p = torch.cat([st, st[: p - n_valid]])
+    valid = torch.ones(n_valid, dtype=torch.bool, device=dev)
+    coeffs = model.coeffs.contiguous()
+    calls = {
+        "unfused": ((st_p, coeffs, 4, n_valid), 0),
+        "fused": ((st, coeffs, 4, n_valid, valid, -1, p), n_valid),
+    }
+    if not torch.equal(ps_kernel.pair_score_cuda(*calls["unfused"][0]),
+                       ps_kernel.pair_score_cuda(*calls["fused"][0])):
+        raise AssertionError("pair_score: the two modes differ on the race's "
+                             "arguments")
+    rows = {}
+    for mode, (args, valid_bytes) in calls.items():
+        ms = _gpu_ms(lambda: ps_kernel.pair_score_cuda(*args))
+        plain_ms = _gpu_ms(lambda: pair_costs_plain(*args), iters=20)
+        _, seen, dev_us = _device_profile(
+            lambda: [ps_kernel.pair_score_cuda(*args) for _ in range(50)])
+        mine = [e for e in seen if "pair_score_kernel" in e.key]
+        prof_us = (sum(dev_us(e) for e in mine)
+                   / max(1, sum(e.count for e in mine)))
+        # Each input read once (the n_valid stacks that are read, the
+        # coefficients, the valid mask), the output written once.
+        n_bytes = n_valid * 16 + 16 * 4 + valid_bytes + p * p * 4
+        # 17 operations per category and entry, 5 for the clips and the sum,
+        # on the valid off-diagonal entries (the rest are sentinel stores).
+        n_ops = (17 * 4 + 5) * n_valid * (n_valid - 1)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_ops / F32_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        _line("kernel", f"pair_score {mode} P={p} n_valid={n_valid}: "
+              f"{ms * 1e3:.3f} us (CUDA events), {prof_us:.3f} us a launch "
+              f"under the profiler, plain {plain_ms * 1e3:.3f} us; bound "
+              f"{bound_ms * 1e3:.3f} us by {bound_by} ({n_bytes} B, {n_ops} "
+              f"f32 ops; {100 * bound_ms / ms:.1f}% of the bound), which "
+              "assumes the output's writes reach HBM; no single PyTorch call "
+              "computes this function")
+        if ms < bound_ms or prof_us * 1e-3 < bound_ms:
+            _line("kernel", f"pair_score {mode}: under the bound: the "
+                  f"{p * p * 4} B output fits in the 50 MB L2, and a launch "
+                  "can end before its writes reach HBM")
+        rows[mode] = (ms, prof_us, plain_ms, bound_ms, bound_by)
+    return rows
 
 
 def _serving_kernels_check(dev, rng):
@@ -696,7 +894,6 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.pair_score import kernel as ps_kernel
     from repro_torch.kernels.rmsnorm import kernel as rn_kernel
-    from repro_torch.kernels.pair_score.ref import DIAG, pair_costs_plain
     from repro_torch.smt import scan_engine, training
     from repro_torch.smt.machine import MachineParams, PhaseTables, SMTMachine
     from repro_torch.smt.workloads import scaled_workload
@@ -729,28 +926,8 @@ def main() -> int:
             _line("build", f"  {ln}")
 
     # 3. Kernel against its plain version.
-    max_err = 0.0
     rng = np.random.default_rng(0)
-    coeffs_rand = torch.as_tensor(
-        rng.normal(0.3, 0.5, (4, 4)).astype(np.float32), device=dev)
-    for p, n_valid, n_cat in ((8, 8, 4), (264, 257, 3), (1032, 1024, 4),
-                              (1032, 1032, 3)):
-        st = torch.as_tensor(
-            rng.dirichlet(np.ones(4), size=p).astype(np.float32), device=dev)
-        got = ps_kernel.pair_score_cuda(st, coeffs_rand, n_cat, n_valid)
-        want = pair_costs_plain(st, coeffs_rand, n_cat, n_valid)
-        torch.cuda.synchronize()
-        sentinel = want == DIAG
-        if not torch.equal(got == DIAG, sentinel):
-            raise AssertionError(f"pair_score P={p}: sentinel entries differ")
-        diff = (got - want).abs()[~sentinel]
-        bound = TOL + TOL * want.abs()[~sentinel]
-        err = float(diff.max()) if diff.numel() else 0.0
-        if not bool((diff <= bound).all()):
-            raise AssertionError(f"pair_score P={p}: max abs err {err:.3e}")
-        max_err = max(max_err, err)
-        _line("kernel", f"pair_score P={p} n_valid={n_valid} C={n_cat}: "
-              f"max abs err {err:.3e} (limit {TOL} abs/rel), sentinels exact")
+    max_err = _pair_score_check(dev, rng, ps_kernel)
 
     # 4. Fit the model.
     t0 = time.perf_counter()
@@ -914,7 +1091,7 @@ def main() -> int:
     solve = partner0 != torch.arange(N_APPS, device=dev)
     masks = torch.stack([solve, ~solve, torch.ones_like(solve),
                          torch.zeros_like(solve)])
-    cost, _ = fstep(counters, partner0, init_st[0], masks, False)
+    cost, st_q = fstep(counters, partner0, init_st[0], masks, False)
     valid_p = torch.arange(p_pad, device=dev) < N_APPS
     matched = matching.device_pairs_partner(cost, valid_p, eps=1e-2,
                                             max_rounds=4 * (p_pad // 2))
@@ -932,9 +1109,8 @@ def main() -> int:
             regression._log_init(fj), regression.GN_STEPS),
         "  heavy-ball fallback (2 x 80 steps)": lambda:
             regression._hb_best_of(model, fi, fj, 80, 1.5),
-        "  pair_score kernel": lambda: regression.pair_cost_matrix(
-            model, torch.cat([init_st[0], init_st[0][:p_pad - N_APPS]]),
-            n_valid=N_APPS),
+        "  pair_score kernel, fused": lambda: regression.pair_cost_matrix(
+            model, st_q, n_valid=N_APPS, valid=masks[2], p=p_pad),
         "matcher, first quantum (seed + 2-opt)": lambda:
             matching.device_pairs_partner(cost, valid_p, eps=1e-2,
                                           max_rounds=4 * (p_pad // 2)),
@@ -947,27 +1123,11 @@ def main() -> int:
     _line("layers", f"the fused step above ran the fallback in {fb_runs} of 5 "
           f"calls; in the main race it ran in {fb_in_race} of "
           f"{N_QUANTA - 1} synpa quanta")
+    _cost_prep_layers(dev, model, st_q, masks[2], False)
 
-    # 7. Kernel time at the main path's shape: P = fused_pad(1024),
-    # n_valid = 1024, four categories, the fitted coefficients.
-    p, n_valid = p_pad, N_APPS
-    st = torch.as_tensor(rng.dirichlet(np.ones(4), size=p).astype(np.float32),
-                         device=dev)
-    coeffs = model.coeffs.contiguous()
-    ms = _gpu_ms(lambda: ps_kernel.pair_score_cuda(st, coeffs, 4, n_valid))
-    plain_ms = _gpu_ms(lambda: pair_costs_plain(st, coeffs, 4, n_valid))
-    n_bytes = p * 4 * 4 + 16 * 4 + p * p * 4
-    # 17 operations per category and entry, 5 for the clips and the sum,
-    # on the valid off-diagonal entries (the rest are sentinel stores).
-    n_ops = (17 * 4 + 5) * n_valid * (n_valid - 1)
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / F32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    _line("kernel", f"pair_score P={p}: {ms * 1e3:.3f} us, plain "
-          f"{plain_ms * 1e3:.3f} us, bound {bound_ms * 1e3:.3f} us "
-          f"({n_bytes} B, {n_ops} f32 ops); no single PyTorch call computes "
-          "this function")
-
+    # 7. Kernel time at the main path's shape, both modes.
+    times = _pair_score_times(dev, rng, model, ps_kernel)
+    ms, prof_us, plain_ms, bound_ms, bound_by = times["fused"]
     kernels = [{
         "name": "pair_score",
         "route": "cuda",
@@ -978,8 +1138,12 @@ def main() -> int:
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": bound_by,
         "library_ms": None,
+        "profiled_ms": prof_us * 1e-3,
+        "unfused": dict(zip(("ms", "profiled_ms", "plain_ms", "bound_ms"),
+                            (times["unfused"][0], times["unfused"][1] * 1e-3,
+                             times["unfused"][2], times["unfused"][3]))),
     }]
 
     # 8-11. The serving path.

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import isc, matching, regression
 from repro_torch.kernels.pair_score.ref import DIAG as _KERNEL_DIAG
+from repro_torch.kernels.pair_score.ref import IDLE_COST as _KERNEL_IDLE
 
 
 def fused_pad(n: int) -> int:
@@ -51,16 +52,20 @@ def make_fused_step(
       estimate should refresh), *solo* (slot ran alone: its measured
       fractions are its ST stack), *valid* (slot hosts an application),
       *fresh* (reset the slot to the uniform placeholder);
-    * ``idle``      bool — augment the idle-context vertex (row ``n``)
-      with :data:`repro_torch.core.matching.IDLE_COST` edges;
+    * ``idle``      host bool — augment the idle-context vertex (row
+      ``n``) with :data:`repro_torch.core.matching.IDLE_COST` edges;
 
     and returns ``(cost (P, P) f32, st (n, 4) f32)``.  Each co-running pair
     is solved once, by its lower-index side, and both slots receive their
-    estimate from that single solve.
+    estimate from that single solve.  The cost matrix, sentinels and idle
+    edges included, comes from one ``pair_score`` call (one kernel launch
+    on the card).
     """
     # The kernel's padding sentinel and the matcher's must be the same
     # value, or padded rows could out-compete real edges in the matching.
     assert _KERNEL_DIAG == matching.BIG, (_KERNEL_DIAG, matching.BIG)
+    assert _KERNEL_IDLE == matching.IDLE_COST, (_KERNEL_IDLE,
+                                                matching.IDLE_COST)
     # Copied to the model's device once: a host-to-device copy inside the
     # step would synchronise the host with the device every quantum.
     uniform = torch.as_tensor(isc.uniform_stack(method.n_categories),
@@ -105,20 +110,12 @@ def make_fused_step(
         # Arrivals reset to the uniform placeholder.
         st = torch.where(fresh_mask[:, None], uniform[None, :], st)
 
-        # Step 2: all-pairs Eq. 4 scoring on the padded stack matrix.
-        stp = torch.cat([st, uniform[None, :].expand(p - n, -1)], dim=0)
-        cost = regression.pair_cost_matrix(model, stp, n_valid=n)
-
-        # Step 3 prep: sentinel out inactive slots, wire the idle vertex.
-        validp = torch.cat(
-            [valid_mask, torch.zeros(p - n, dtype=torch.bool, device=device)])
-        pairv = validp[:, None] & validp[None, :]
-        cost = torch.where(pairv, cost, matching.BIG)
-        is_idle = (torch.arange(p, device=device) == n) & idle
-        cost = torch.where(is_idle[:, None] & validp[None, :],
-                           matching.IDLE_COST, cost)
-        cost = torch.where(validp[:, None] & is_idle[None, :],
-                           matching.IDLE_COST, cost)
+        # Step 2 and the Step 3 prep in one call: all-pairs Eq. 4 scoring
+        # into the padded (P, P) matrix, inactive slots sentineled out, the
+        # idle vertex (row n) wired when ``idle``.
+        cost = regression.pair_cost_matrix(
+            model, st, n_valid=n, valid=valid_mask,
+            idle_row=n if idle else -1, p=p)
         return cost, st
 
     return step

@@ -11,14 +11,15 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._build import BUILD_DIR, INT, NVCC_FLAGS, PTR, CudaLibrary
+from repro_torch.kernels._build import (
+    BUILD_DIR, INT, NVCC_FLAGS, PTR, CudaLibrary, check_inputs)
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCE", "LIB", "LAUNCHES",
            "library_path", "pair_score_cuda"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "pair_score.cu"
-LIB = CudaLibrary(SOURCE, {"pair_score_launch": (PTR, PTR, PTR, INT, INT,
-                                                 INT, PTR)})
+LIB = CudaLibrary(SOURCE, {"pair_score_launch": (PTR, PTR, PTR, PTR, INT, INT,
+                                                 INT, INT, PTR)})
 
 #: Launches of the CUDA kernel in this process; :func:`pair_score_cuda`
 #: adds one per launch and nothing else touches it.
@@ -28,35 +29,51 @@ library_path = LIB.library_path
 
 
 def pair_score_cuda(st: torch.Tensor, coeffs: torch.Tensor,
-                    n_categories: int = 4, n_valid=None) -> torch.Tensor:
-    """Launch the kernel: st (P, 4) f32 CUDA, coeffs (4, 4) f32 CUDA ->
-    (P, P) f32 pair costs with ``DIAG`` on the diagonal and on rows/cols
-    at or past ``n_valid`` (default P).  Launches on the current stream
-    and does not synchronise."""
+                    n_categories: int = 4, n_valid=None, valid=None,
+                    idle_row: int = -1, p=None) -> torch.Tensor:
+    """Launch the kernel: (p, p) f32 pair costs, ready for the matcher.
+
+    ``st`` (rows, 4) f32 and ``coeffs`` (4, 4) f32 on one GPU; ``p``
+    (default ``rows``) is the output size and ``n_valid`` (default
+    ``min(rows, p)``) the count of leading vertices that may be valid;
+    stack rows at or past ``n_valid`` are never read.  ``valid``: an
+    optional (n_valid,) bool mask on the same GPU; ``idle_row``: the
+    idle-context vertex, or -1.  Entry (i, j) is ``IDLE_COST`` when one
+    side is the idle vertex and the other valid, else ``DIAG`` when i == j
+    or either side is not valid, else the Eq. 4 cost (see
+    :func:`repro_torch.kernels.pair_score.ref.pair_costs_plain`).
+    Launches on the current stream and does not synchronise."""
     global LAUNCHES
-    for name, t in (("st", st), ("coeffs", coeffs)):
-        if t.device.type != "cuda":
-            raise ValueError(f"pair_score_cuda: {name} is on {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"pair_score_cuda: {name} is {t.dtype}, not f32")
-        if not t.is_contiguous():
-            raise ValueError(f"pair_score_cuda: {name} is not contiguous")
+    check_inputs("pair_score_cuda", (torch.float32,), st=st, coeffs=coeffs)
     if st.dim() != 2 or st.shape[1] != 4:
-        raise ValueError(f"pair_score_cuda: st must be (P, 4), got {tuple(st.shape)}")
+        raise ValueError(f"pair_score_cuda: st must be (rows, 4), got "
+                         f"{tuple(st.shape)}")
     if tuple(coeffs.shape) != (4, 4):
         raise ValueError(
             f"pair_score_cuda: coeffs must be (4, 4), got {tuple(coeffs.shape)}")
-    if coeffs.device != st.device:
-        raise ValueError("pair_score_cuda: st and coeffs on different devices")
-    if st.data_ptr() % 16:
-        raise ValueError("pair_score_cuda: st must be 16-byte aligned")
     if not 1 <= n_categories <= 4:
         raise ValueError(f"pair_score_cuda: n_categories={n_categories}")
-    p = st.shape[0]
-    n_valid = p if n_valid is None else int(n_valid)
+    rows = st.shape[0]
+    p = rows if p is None else int(p)
+    n_valid = min(rows, p) if n_valid is None else min(int(n_valid), p)
+    if p < 0 or not 0 <= n_valid <= rows:
+        raise ValueError(f"pair_score_cuda: p={p}, n_valid={n_valid} with "
+                         f"{rows} stack rows")
+    valid_ptr = None
+    if valid is not None:
+        if valid.device != st.device:
+            raise ValueError(f"pair_score_cuda: valid is on {valid.device}, "
+                             f"not {st.device}")
+        if valid.dtype != torch.bool:
+            raise TypeError(f"pair_score_cuda: valid is {valid.dtype}, not "
+                            "torch.bool")
+        if tuple(valid.shape) != (n_valid,) or not valid.is_contiguous():
+            raise ValueError(f"pair_score_cuda: valid must be a contiguous "
+                             f"({n_valid},) mask, got {tuple(valid.shape)}")
+        valid_ptr = valid.data_ptr()
     out = torch.empty((p, p), dtype=torch.float32, device=st.device)
-    stream = torch.cuda.current_stream(st.device).cuda_stream
     LIB.launch("pair_score_launch", st.data_ptr(), coeffs.data_ptr(),
-               out.data_ptr(), p, n_valid, n_categories, stream)
+               valid_ptr, out.data_ptr(), p, n_valid, n_categories,
+               int(idle_row), torch.cuda.current_stream(st.device).cuda_stream)
     LAUNCHES += 1
     return out

@@ -6,18 +6,25 @@ from repro_torch.kernels.pair_score import kernel
 from repro_torch.kernels.pair_score.ref import pair_costs_plain
 
 
-def pair_costs(st, coeffs, n_categories: int = 4, n_valid=None):
-    """All-pairs SYNPA pair costs: (P, 4) ST stacks -> (P, P) f32.
+def pair_costs(st, coeffs, n_categories: int = 4, n_valid=None, valid=None,
+               idle_row: int = -1, p=None):
+    """All-pairs SYNPA pair costs: (rows, 4) ST stacks -> (p, p) f32.
 
     A CUDA tensor goes to the hand-written kernel, a CPU tensor to the
     plain torch version; there is no fallback between them.
 
-    ``n_valid``: when given, ``st`` is treated as padded — rows at or past
-    ``n_valid`` are padding and every cost entry touching them carries the
-    ``DIAG`` sentinel, while the result keeps the full padded (P, P) shape.
+    ``p`` (default ``rows``) is the padded output size; rows at or past
+    ``n_valid`` (default ``min(rows, p)``) are padding, never read, and
+    every cost entry touching them carries the ``DIAG`` sentinel.  With
+    ``valid`` (an (n_valid,) bool mask) and ``idle_row`` the result is the
+    matcher's cost matrix: ``DIAG`` on every entry of an invalid vertex,
+    ``IDLE_COST`` between the idle vertex and each valid one (see
+    :func:`repro_torch.kernels.pair_score.ref.pair_costs_plain`).
     """
     if st.device.type == "cuda":
-        return kernel.pair_score_cuda(st, coeffs, n_categories, n_valid)
+        return kernel.pair_score_cuda(st, coeffs, n_categories, n_valid,
+                                      valid, idle_row, p)
     if st.device.type != "cpu":
         raise ValueError(f"pair_costs: no path for device {st.device}")
-    return pair_costs_plain(st, coeffs, n_categories, n_valid)
+    return pair_costs_plain(st, coeffs, n_categories, n_valid, valid,
+                            idle_row, p)

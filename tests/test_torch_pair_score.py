@@ -1,8 +1,10 @@
 """``repro_torch.kernels.pair_score``: the plain torch version against the
 reference's ``pair_cost_ref`` and ``pair_costs(impl="xla")`` (tolerance
-2e-5, ``DIAG`` sentinels exact) and the CPU/CUDA dispatch.  The CUDA
-kernel itself is held against the plain version on a GPU in
-``test_torch_pair_score_gpu.py``."""
+2e-5, ``DIAG`` sentinels exact), the fused cost preparation against the
+chain of tensor ops it replaced (bit for bit) and against the reference's
+own chain (2e-5, sentinels and idle edges exact), and the CPU/CUDA
+dispatch.  The CUDA kernel itself is held against the plain version on a
+GPU in ``test_torch_pair_score_gpu.py``."""
 
 import pytest
 
@@ -11,10 +13,13 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.core import matching as jmat  # noqa: E402
 from repro.kernels.pair_score import ops as jops  # noqa: E402
 from repro.kernels.pair_score.ref import pair_cost_ref as j_ref  # noqa: E402
+from repro_torch.core import isc as tisc  # noqa: E402
 from repro_torch.kernels.pair_score import kernel, ops  # noqa: E402
-from repro_torch.kernels.pair_score.ref import DIAG, pair_cost_ref  # noqa: E402
+from repro_torch.kernels.pair_score.ref import (  # noqa: E402
+    DIAG, fixed_entries, pair_cost_ref)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -75,3 +80,146 @@ def test_source_and_build_location():
     assert path.parent == kernel.BUILD_DIR
     assert kernel.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
     assert "sm_90a" in " ".join(kernel.NVCC_FLAGS)
+
+
+def _old_pair_costs_plain(st, coeffs, n_categories=4, n_valid=None):
+    """``pair_costs_plain`` as it was before the cost preparation moved
+    into it, verbatim."""
+    out = pair_cost_ref(st, coeffs, n_categories)
+    n = st.shape[0]
+    if n_valid is not None and n_valid < n:
+        idx = torch.arange(n, device=st.device)
+        invalid = (idx[:, None] >= n_valid) | (idx[None, :] >= n_valid)
+        out = torch.where(invalid, DIAG, out)
+    return out
+
+
+def _old_fused_chain(st, coeffs, valid_mask, idle, p):
+    """Step 2 and the cost preparation of ``make_fused_step`` as they were
+    before the fusion, verbatim: uniform padding rows, the unfused
+    scoring, then the mask-and-``where`` passes."""
+    device = st.device
+    n = st.shape[0]
+    uniform = torch.as_tensor(tisc.uniform_stack(4))
+    stp = torch.cat([st, uniform[None, :].expand(p - n, -1)], dim=0)
+    cost = _old_pair_costs_plain(stp, coeffs, 4, n_valid=n)
+    validp = torch.cat(
+        [valid_mask, torch.zeros(p - n, dtype=torch.bool, device=device)])
+    pairv = validp[:, None] & validp[None, :]
+    cost = torch.where(pairv, cost, jmat.BIG)
+    is_idle = (torch.arange(p, device=device) == n) & idle
+    cost = torch.where(is_idle[:, None] & validp[None, :],
+                       jmat.IDLE_COST, cost)
+    cost = torch.where(validp[:, None] & is_idle[None, :],
+                       jmat.IDLE_COST, cost)
+    return cost
+
+
+def _fused_inputs(p, n_valid, seed):
+    st, coeffs = _inputs(p, seed)
+    rng = np.random.default_rng(seed + 1)
+    valid = rng.random(n_valid) > 0.15
+    valid[n_valid - 1] = False   # an empty slot beside the idle vertex
+    return st, coeffs, valid
+
+
+@pytest.mark.parametrize("full_rows", [False, True],
+                         ids=["n_valid_rows", "p_rows"])
+@pytest.mark.parametrize("idle", [False, True], ids=["no_idle", "idle"])
+@pytest.mark.parametrize("p,n_valid", [(8, 7), (16, 9), (264, 257),
+                                       (1032, 1024)])
+def test_fused_plain_matches_old_chain(p, n_valid, idle, full_rows):
+    """The fused plain version equals, bit for bit, the unfused scoring
+    plus the cost preparation that ``make_fused_step`` ran before."""
+    st, coeffs, valid = _fused_inputs(p, n_valid, p + n_valid)
+    st_t, coeffs_t = torch.as_tensor(st), torch.as_tensor(coeffs)
+    valid_t = torch.as_tensor(valid)
+    want = _old_fused_chain(st_t[:n_valid], coeffs_t, valid_t, idle, p)
+    got = ops.pair_costs(st_t if full_rows else st_t[:n_valid], coeffs_t,
+                         n_categories=4, n_valid=n_valid, valid=valid_t,
+                         idle_row=n_valid if idle else -1, p=p)
+    assert tuple(got.shape) == (p, p) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert bool((got == jmat.IDLE_COST).any()) == idle
+    assert bool((got[n_valid, n_valid - 1] == DIAG))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_rows_past_n_valid_are_not_read(fused):
+    """Stack rows at or past ``n_valid`` do not change the output, not even
+    when they hold NaN or infinity."""
+    p, n_valid = 40, 33
+    st, coeffs, valid = _fused_inputs(p, n_valid, 5)
+    kw = dict(n_categories=4, n_valid=n_valid, p=p)
+    if fused:
+        kw.update(valid=torch.as_tensor(valid), idle_row=n_valid)
+    want = ops.pair_costs(torch.as_tensor(st[:n_valid]),
+                          torch.as_tensor(coeffs), **kw)
+    for junk in (np.nan, np.inf, 1e30):
+        poisoned = st.copy()
+        poisoned[n_valid:] = junk
+        got = ops.pair_costs(torch.as_tensor(poisoned),
+                             torch.as_tensor(coeffs), **kw)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("idle", [False, True], ids=["no_idle", "idle"])
+@pytest.mark.parametrize("p,n_valid", [(8, 7), (33, 30), (264, 257)])
+def test_fixed_entries_are_where_the_plain_version_writes_constants(
+        p, n_valid, idle):
+    """``fixed_entries`` finds by position the ``DIAG`` and ``IDLE_COST``
+    entries that the plain version writes (none of these inputs has a cost
+    of exactly ``IDLE_COST``)."""
+    st, coeffs, valid = _fused_inputs(p, n_valid, 3 * p)
+    valid_t = torch.as_tensor(valid)
+    idle_row = n_valid if idle else -1
+    out = ops.pair_costs(torch.as_tensor(st), torch.as_tensor(coeffs),
+                         n_valid=n_valid, valid=valid_t, idle_row=idle_row,
+                         p=p)
+    diag, idle_e = fixed_entries(p, n_valid, valid_t, idle_row)
+    assert torch.equal(diag, out == DIAG)
+    assert torch.equal(idle_e, out == jmat.IDLE_COST)
+
+
+def _jax_fused_chain(st, coeffs, valid, idle, p):
+    """Step 2 and the cost preparation as the reference's fused step runs
+    them (``repro.core.synpa.make_fused_step``): uniform padding rows,
+    ``pair_costs(impl="xla")``, then its mask-and-``where`` passes."""
+    n = st.shape[0]
+    uniform = jnp.full((4,), 0.25, jnp.float32)
+    stp = jnp.concatenate([jnp.asarray(st), jnp.tile(uniform[None, :],
+                                                     (p - n, 1))], axis=0)
+    cost = jops.pair_costs(stp, jnp.asarray(coeffs), n_categories=4,
+                           impl="xla", n_valid=n)
+    validp = jnp.concatenate([jnp.asarray(valid), jnp.zeros((p - n,), bool)])
+    pairv = validp[:, None] & validp[None, :]
+    cost = jnp.where(pairv, cost, jmat.BIG)
+    is_idle = (jnp.arange(p) == n) & idle
+    cost = jnp.where(is_idle[:, None] & validp[None, :], jmat.IDLE_COST, cost)
+    cost = jnp.where(validp[:, None] & is_idle[None, :], jmat.IDLE_COST, cost)
+    return np.asarray(cost)
+
+
+@pytest.mark.parametrize("idle", [False, True], ids=["no_idle", "idle"])
+@pytest.mark.parametrize("p,n_valid", [(16, 9), (264, 257), (1032, 1024)])
+def test_fused_plain_matches_jax_chain(p, n_valid, idle):
+    """The fused plain version against the reference's own Step 2 and cost
+    preparation, with random empty slots: ``DIAG`` and ``IDLE_COST``
+    entries exact (found by position), the rest within 2e-5."""
+    st, coeffs, valid = _fused_inputs(p, n_valid, 11 * p + idle)
+    valid_t = torch.as_tensor(valid)
+    idle_row = n_valid if idle else -1
+    got = ops.pair_costs(torch.as_tensor(st[:n_valid]),
+                         torch.as_tensor(coeffs), n_categories=4,
+                         n_valid=n_valid, valid=valid_t, idle_row=idle_row,
+                         p=p).numpy()
+    want = _jax_fused_chain(st[:n_valid], coeffs, valid, idle, p)
+    assert got.shape == want.shape == (p, p)
+    diag, idle_e = (m.numpy() for m in fixed_entries(p, n_valid, valid_t,
+                                                     idle_row))
+    assert (got[diag] == DIAG).all() and (want[diag] == DIAG).all()
+    assert (got[idle_e] == jmat.IDLE_COST).all()
+    assert (want[idle_e] == jmat.IDLE_COST).all()
+    assert idle_e.any() == idle
+    fixed = diag | idle_e
+    np.testing.assert_allclose(got[~fixed], want[~fixed], **TOL)

@@ -1,12 +1,17 @@
 """The hand-written CUDA ``pair_score`` kernel against its plain torch
-version, on the card (tolerance 2e-5 abs/rel, ``DIAG`` sentinels exact).
+version, on the card (tolerance 2e-5 abs/rel; ``DIAG`` sentinels and
+``IDLE_COST`` edges exact), with and without the fused cost preparation.
 
 This file imports nothing of JAX, so it runs where the port runs::
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_pair_score_gpu.py
 
-Every test needs a GPU and skips without one.
+Every test but the check of ``chip_smoke.py``'s case list needs a GPU and
+skips without one.
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,9 +19,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.pair_score import kernel, ops  # noqa: E402
-from repro_torch.kernels.pair_score.ref import DIAG, pair_costs_plain  # noqa: E402
+from repro_torch.kernels.pair_score.ref import (  # noqa: E402
+    DIAG, IDLE_COST, fixed_entries, pair_costs_plain)
 
 TOL = 2e-5
+#: Output sizes of the fused-mode check: 2 and 33 hold a single tile (the
+#: diagonal one), 33 and 129 end in a partial tile, 4104 and 8200 launch
+#: thousands of tiles.  chip_smoke.py's PAIR_SCORE_SIZES must match.
+PAIR_SCORE_SIZES = [2, 33, 129, 264, 1032, 4104, 8200]
 
 
 @pytest.fixture
@@ -54,6 +64,54 @@ def test_kernel_matches_plain(cuda, p, n_valid, n_categories):
                                atol=TOL)
 
 
+def _fused_case(p, seed, device):
+    """A fused-mode call at output size ``p``: ``n_valid`` a little below
+    ``p``, about 15% of the slots empty (the one beside the idle vertex
+    always), the idle vertex at row ``n_valid`` (when ``p`` has room)."""
+    n_valid = max(1, p - 1 - p // 64)
+    rng = np.random.default_rng(seed)
+    valid = rng.random(n_valid) > 0.15
+    valid[n_valid - 1] = False
+    st = rng.dirichlet(np.ones(4), size=p).astype(np.float32)
+    return (torch.as_tensor(st, device=device), n_valid,
+            torch.as_tensor(valid, device=device))
+
+
+def test_chip_smoke_checks_the_same_sizes():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.PAIR_SCORE_SIZES == PAIR_SCORE_SIZES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("full_rows", [False, True],
+                         ids=["n_valid_rows", "p_rows"])
+@pytest.mark.parametrize("idle", [False, True], ids=["no_idle", "idle"])
+@pytest.mark.parametrize("p", PAIR_SCORE_SIZES)
+def test_fused_kernel_matches_plain(cuda, p, idle, full_rows):
+    st, n_valid, valid = _fused_case(p, p, cuda)
+    _, coeffs = _inputs(4, p, cuda)
+    if not full_rows:
+        st = st[:n_valid].clone()
+    idle_row = n_valid if idle and n_valid < p else -1
+    before = kernel.LAUNCHES
+    got = ops.pair_costs(st, coeffs, n_categories=4, n_valid=n_valid,
+                         valid=valid, idle_row=idle_row, p=p)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 1
+    want = pair_costs_plain(st, coeffs, 4, n_valid, valid, idle_row, p)
+    assert got.shape == (p, p) and got.dtype == torch.float32
+    diag, idle_e = fixed_entries(p, n_valid, valid, idle_row, cuda)
+    assert bool((got[diag] == DIAG).all()) and bool((want[diag] == DIAG).all())
+    assert bool((got[idle_e] == IDLE_COST).all())
+    assert bool((want[idle_e] == IDLE_COST).all())
+    assert bool(idle_e.any()) == (idle_row >= 0 and p > 2)
+    fixed = diag | idle_e
+    torch.testing.assert_close(got[~fixed], want[~fixed], rtol=TOL, atol=TOL)
+
+
 @pytest.mark.gpu
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     st, coeffs = _inputs(16, 0, cuda)
@@ -65,3 +123,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         kernel.pair_score_cuda(st.t().contiguous().t(), coeffs)
     with pytest.raises(ValueError):
         kernel.pair_score_cuda(st, coeffs.cpu())
+    valid = torch.ones(12, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        kernel.pair_score_cuda(st, coeffs, 4, 12, valid.to(torch.uint8))
+    with pytest.raises(ValueError):
+        kernel.pair_score_cuda(st, coeffs, 4, 12, valid[:11])
+    with pytest.raises(ValueError):
+        kernel.pair_score_cuda(st, coeffs, 4, 12, valid.cpu())
+    with pytest.raises(ValueError):
+        kernel.pair_score_cuda(st[:8], coeffs, 4, 12, valid, p=16)

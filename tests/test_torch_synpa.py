@@ -2,7 +2,7 @@
 matching cost preparation) with the reference's fused step.
 
 Both packages get the same ``(counters, partner, prev_st, masks, idle)``
-at n in {8, 15, 64}, made with numpy from a seed, and the same fitted
+at n in {8, 15, 33, 64}, made with numpy from a seed, and the same fitted
 ``SYNPA4_R-FEBE`` coefficients.  Tolerances: cost 2e-5 with every ``BIG``
 and ``IDLE_COST`` entry exact; ST stacks 1e-5.  A pair whose solve stopped
 on a plateau (noisy counters leave no exact solution: residual above the
@@ -44,9 +44,16 @@ def models():
     return jm, tm
 
 
-def _inputs(n, seed, open_system=False):
+#: Open-system cases whose empty slots are chosen, not drawn: at n = 33
+#: the two slots beside the idle vertex (row 33) are empty, which leaves
+#: 31 applications and so wires the idle vertex.
+_INVALID = {33: (31, 32)}
+
+
+def _inputs(n, seed, open_system=False, invalid=None):
     """Counters of one machine quantum on a random pairing (solo slots
-    where the pairing leaves them), carried estimates and masks."""
+    where the pairing leaves them), carried estimates and masks.  An open
+    system empties ``invalid`` slots, or 3 drawn ones."""
     rng = np.random.default_rng(seed)
     params = tmc.MachineParams()
     tables = tmc.PhaseTables.build(scaled_workload(n + n % 2, seed=seed)[:n])
@@ -55,6 +62,9 @@ def _inputs(n, seed, open_system=False):
     valid = np.ones(n, bool)
     if open_system:
         valid[rng.choice(n, size=3, replace=False)] = False
+        if invalid is not None:
+            valid[:] = True
+            valid[list(invalid)] = False
     perm = rng.permutation(np.flatnonzero(valid))
     partner = idx.copy()
     for k in range(len(perm) // 2):
@@ -101,10 +111,11 @@ def _assert_st_close(jm, counters, partner, got, want):
 
 
 @pytest.mark.parametrize("open_system", [False, True])
-@pytest.mark.parametrize("n", [8, 15, 64])
+@pytest.mark.parametrize("n", [8, 15, 64, 33])
 def test_fused_step_matches(models, n, open_system):
     jm, tm = models
-    counters, partner, prev_st, masks, idle = _inputs(n, n, open_system)
+    counters, partner, prev_st, masks, idle = _inputs(
+        n, n, open_system, _INVALID.get(n))
     jstep = jsyn.make_fused_step(jisc.SYNPA4_R_FEBE, jm, impl="xla")
     w_cost, w_st = jstep(jnp.asarray(counters),
                          jnp.asarray(partner, jnp.int32),
@@ -121,8 +132,12 @@ def test_fused_step_matches(models, n, open_system):
     assert tuple(g_st.shape) == (n, 4) and g_st.dtype == torch.float32
     _assert_cost_close(g_cost.numpy(), np.asarray(w_cost))
     _assert_st_close(jm, counters, partner, g_st.numpy(), np.asarray(w_st))
-    # the idle vertex is wired exactly when the valid population is odd
+    # the idle vertex is wired exactly when the valid population is odd,
+    # to the valid slots only
     assert bool((g_cost[n, :n] == jmat.IDLE_COST).any()) == idle
+    valid = torch.as_tensor(masks[2])
+    assert bool((g_cost[n, :n][~valid] == jmat.BIG).all())
+    assert bool((g_cost[:n, n][~valid] == jmat.BIG).all())
 
 
 def test_fused_step_deterministic_on_simplex(models):
