@@ -53,7 +53,28 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    float32 SIMT bound of the earlier design is printed beside it, the
    SDPA backend that ran the yardstick is named by its kernels, the
    pre-pass and the attention kernel are timed apart under the profiler,
-   and the bfloat16 kernel is timed at the same shape.
+   and the bfloat16 kernel is timed at the same shape;
+12. the open system's reference check, card against CPU: ``ClusterSim``
+   with ``engine="scan"`` at capacity 16 (15 jobs at quantum 0, then 3 at
+   every odd quantum), policies ``adjacent``, ``synpa4`` with fifo and
+   with synergy admission, and ``synpa4`` under a crash wave, both sides
+   fed the same draws and the same synergy tables: admission quanta,
+   queue depths, active and solo counts, retries, evictions and requeues
+   identical, finish quanta within 1e-4; the synergy pool cost card
+   against CPU (2e-5), and ``torch.argmin`` taking the first of tied
+   minima on the card;
+13. the open main path: ``record_device_ab``'s large cell of
+   ``benchmarks/online_churn.py`` (capacity 1024, rho = 1.0, 24 quanta,
+   seed 11, ``pool_profiles()``, target scale 0.25): ``adjacent``,
+   ``synpa4`` with fifo and with synergy admission, and ``synpa4`` under
+   the ``combined`` fault profile, each run with every kernel's launch
+   count set to 0 just before and read just after (``pair_score`` exactly
+   once a synpa quantum); per run the jobs, slowdowns, turnaround, queue
+   depth, wall per quantum (median of 3 after a warm run) and host syncs;
+   an audit of the host syncs of one synergy run, a profiler breakdown of
+   one fifo run, and ``synpa4`` must beat ``adjacent`` on mean slowdown;
+14. ``pair_score`` reading the idle vertex's flag from device memory,
+   timed beside the host-int variant at P = 1032, outputs identical.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -100,6 +121,14 @@ PREFILL_B, PREFILL_S = 4, 2048
 DECODE_B, DECODE_S, DECODE_H, DECODE_D = 8, 4096, 16, 64
 RMS_T, RMS_D = 8192, 1024
 TOL_F32, TOL_BF16 = 1e-4, 2e-2
+#: The open system's main path (phase 13): the large cell of
+#: ``record_device_ab`` in benchmarks/online_churn.py (sizes (256, 1024),
+#: rho 1.0, seed 11, QUANTA[1024], TARGET_SCALE, MEAN_SERVICE_SLOWDOWN).
+OPEN_CAPACITY, OPEN_QUANTA, OPEN_SEED, OPEN_RHO = 1024, 24, 11, 1.0
+TARGET_SCALE = 0.25
+MEAN_SERVICE_SLOWDOWN = 1.3
+#: The open system's reference check (phase 12): 8 cores, 40 quanta.
+SMALL_CORES, SMALL_QUANTA, SMALL_SEED = 8, 40, 5
 #: Flash attention's edge cases: (B, Sq, Skv, Hq, Hkv, D, causal, window,
 #: q scale).  Lengths that are multiples of no tile, Sq != Skv both ways,
 #: GQA groups 1, 4 and 8, windows whose first key falls mid-tile, q scaled
@@ -224,6 +253,21 @@ def _attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     hi = np.minimum(i + 1, skv) if causal else np.full(sq, skv)
     lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(sq, int)
     return int(np.maximum(hi - lo, 0).sum())
+
+
+def _audited(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    warnings of the host synchronisations it made."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message) for w in seen if "synchroniz" in str(w.message)]
 
 
 def _close(got, want, tol: float, what: str) -> float:
@@ -880,6 +924,332 @@ def _serving_kernel_times(dev, rng, errs, path_launches):
     return entries
 
 
+def mean_service_quanta(machine) -> float:
+    """Expected quanta a job holds a context: solo quanta under the scaled
+    §6.2 target times the typical SMT slowdown (as
+    ``benchmarks/online_churn.py`` maps rho to an arrival rate)."""
+    return (machine.params.solo_reference_quanta * TARGET_SCALE
+            * MEAN_SERVICE_SLOWDOWN)
+
+
+def _fault_profile(FaultProfile, name: str, n_cores: int, quanta: int):
+    """The crash wave and the combined profile of
+    ``benchmarks/online_churn.py``'s fault grid at this size."""
+    k = max(1, n_cores // 8)
+    down_q, up_q = quanta // 4, (3 * quanta) // 4
+    crash = tuple((down_q + i % 3, i) for i in range(k))
+    heal = tuple((up_q + i % 3, i) for i in range(k))
+    band = tuple((c, quanta // 3, (2 * quanta) // 3, 0.5)
+                 for c in range(n_cores - max(1, n_cores // 8), n_cores))
+    if name == "crash-wave":
+        return FaultProfile(fail=crash, recover=heal)
+    assert name == "combined", name
+    return FaultProfile(fail=crash, recover=heal, straggle=band,
+                        mttf_quanta=6.0 * quanta, mttr_quanta=quanta / 6.0)
+
+
+def _same_open_run(card, cpu, what: str) -> None:
+    """Phase 12's comparison: every integer log identical, finish quanta
+    within 1e-4."""
+    import numpy as np
+
+    if (card.n_arrived, card.n_admitted, card.n_completed) != \
+            (cpu.n_arrived, cpu.n_admitted, cpu.n_completed):
+        raise AssertionError(
+            f"{what}: jobs card {(card.n_arrived, card.n_admitted, card.n_completed)}"
+            f" vs CPU {(cpu.n_arrived, cpu.n_admitted, cpu.n_completed)}")
+    series = ["queue_depth", "active", "solo_quanta", "admissions"]
+    if cpu.has_faults:
+        series += ["evictions", "requeues"]
+    for name in series:
+        if not np.array_equal(getattr(card, name), getattr(cpu, name)):
+            raise AssertionError(f"{what}: {name} differs card vs CPU")
+    a = {r.job_id: r for r in card.completed}
+    b = {r.job_id: r for r in cpu.completed}
+    if a.keys() != b.keys() or any(
+            (a[j].admit_q, a[j].retries) != (b[j].admit_q, b[j].retries)
+            for j in a):
+        raise AssertionError(f"{what}: admission quanta or retries differ")
+    for j in a:
+        if not abs(a[j].finish_q - b[j].finish_q) <= 1e-4 * abs(b[j].finish_q):
+            raise AssertionError(f"{what}: job {j} finishes at "
+                                 f"{a[j].finish_q!r} on the card, "
+                                 f"{b[j].finish_q!r} on the CPU")
+
+
+def _open_reference(dev, model) -> None:
+    """Phase 12: the open system at capacity 16, card against CPU, on the
+    same draws and the same synergy tables."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import isc
+    from repro_torch.kernels.pair_score.ref import DIAG
+    from repro_torch.online import (ClusterSim, FaultProfile,
+                                    SynergyAdmission, TraceArrivals)
+    from repro_torch.smt.apps import pool_profiles
+    from repro_torch.smt.machine import MachineParams, SMTMachine
+    from repro_torch.smt.scan_engine import ScanPolicy
+
+    # torch.argmin must take the first of tied minima on the card, as
+    # jnp.argmin does: synergy placement breaks its ties so.
+    rng = np.random.default_rng(12)
+    for n in (16, 1024):
+        for _ in range(20):
+            x = rng.integers(0, 4, n).astype(np.float32)
+            x[rng.random(n) < 0.3] = np.inf
+            got = int(torch.argmin(torch.as_tensor(x, device=dev)))
+            if got != int(np.argmin(x)):
+                raise AssertionError(f"argmin on the card: {got}, first "
+                                     f"minimum at {int(np.argmin(x))}")
+    _line("open", "torch.argmin on the card takes the first of tied minima "
+          "(40 draws at 16 and 1024 slots)")
+
+    machine = SMTMachine(MachineParams(), seed=0)
+    pool = pool_profiles()
+    model_cpu = model.to("cpu")
+    # Fresh machines: a solo profile draws its phase lengths from the
+    # machine's generator.
+    syn = SynergyAdmission(SMTMachine(MachineParams(), seed=0), pool,
+                           isc.SYNPA4_R_FEBE, model, quanta=12)
+    syn_cpu = SynergyAdmission(SMTMachine(MachineParams(), seed=0), pool,
+                               isc.SYNPA4_R_FEBE, model_cpu, quanta=12)
+    off = ~np.eye(len(pool), dtype=bool)
+    diff = np.abs(syn.pool_cost - syn_cpu.pool_cost)[off]
+    err = float(diff.max())
+    if not ((diff <= TOL + TOL * np.abs(syn_cpu.pool_cost[off])).all()
+            and (np.diag(syn.pool_cost) == DIAG).all()):
+        raise AssertionError(f"synergy pool cost card vs CPU: {err:.3e}")
+    _line("open", f"synergy pool cost ({len(pool)} x {len(pool)}, the "
+          f"pair_score kernel on the card): max abs diff card vs CPU "
+          f"{err:.3e} (limit {TOL} abs/rel), diagonal DIAG")
+
+    # 15 jobs at quantum 0 (an odd population: the idle vertex from the
+    # first quantum), then 3 at every odd quantum: queueing, and the
+    # parity toggles as jobs leave.
+    q = SMALL_QUANTA
+    events = [(0, k) for k in range(15)] + [
+        (t, (7 * t + i) % len(pool)) for t in range(1, q, 2) for i in range(3)]
+
+    def synpa(m):
+        return ScanPolicy(kind="synpa", method=isc.SYNPA4_R_FEBE, model=m)
+
+    crash = _fault_profile(FaultProfile, "crash-wave", SMALL_CORES, q)
+    cases = {
+        "adjacent": (ScanPolicy(kind="adjacent"), ScanPolicy(kind="adjacent"),
+                     {}),
+        "synpa4 fifo": (synpa(model), synpa(model_cpu), {}),
+        "synpa4 synergy": (synpa(model), synpa(model_cpu),
+                           dict(admission="synergy", synergy=syn)),
+        "synpa4 crash-wave": (synpa(model), synpa(model_cpu),
+                              dict(faults=crash)),
+    }
+    for name, (pol_card, pol_cpu, kw) in cases.items():
+        out = {}
+        for where, pol in ((dev, pol_card), ("cpu", pol_cpu)):
+            sim = ClusterSim(machine, pool, SMALL_CORES, pol,
+                             TraceArrivals(events), seed=SMALL_SEED,
+                             target_scale=0.1, engine="scan", device=where,
+                             **kw)
+            out[str(where)] = sim.run(q, warmup=False,
+                                      draws=HostDraws(SMALL_SEED, where))
+        card, cpu = out[str(dev)], out["cpu"]
+        _same_open_run(card, cpu, f"open capacity 16 {name}")
+        faults = (f", evictions {int(card.evictions.sum())}, requeues "
+                  f"{int(card.requeues.sum())}" if card.has_faults else "")
+        _line("open", f"capacity 16 {name}: {card.n_arrived} arrived, "
+              f"{card.n_admitted} admitted, {card.n_completed} completed, "
+              f"max queue {int(card.queue_depth.max())}, solo quanta "
+              f"{int(card.solo_quanta.sum())}{faults}; mean slowdown card "
+              f"{card.mean_slowdown!r} CPU {cpu.mean_slowdown!r}: identical "
+              "integer logs, finish quanta within 1e-4")
+        if card.n_completed == 0 or card.queue_depth.max() == 0 or \
+                card.solo_quanta.sum() == 0:
+            raise AssertionError(f"open capacity 16 {name}: the check saw no "
+                                 "completion, no queue or no odd population")
+
+
+def _open_main_path(dev, model, kernel_mods):
+    """Phase 13: the open system at capacity 1024.  Returns the kernels'
+    launches over the four runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import isc, matching, regression
+    from repro_torch.online import (ClusterSim, FaultProfile,
+                                    PoissonArrivals, SynergyAdmission)
+    from repro_torch.online import device_sim
+    from repro_torch.smt.apps import pool_profiles
+    from repro_torch.smt.machine import MachineParams, PhaseTables, SMTMachine
+    from repro_torch.smt.scan_engine import ScanPolicy, TorchDraws
+
+    machine = SMTMachine(MachineParams(), seed=0)
+    pool = pool_profiles()
+    tables = PhaseTables.build(pool)
+    n_cores = OPEN_CAPACITY // 2
+    rate = OPEN_RHO * OPEN_CAPACITY / mean_service_quanta(machine)
+    t0 = time.perf_counter()
+    syn = SynergyAdmission(machine, pool, isc.SYNPA4_R_FEBE, model)
+    _line("open", f"synergy tables ({len(pool)} pool apps, 40 solo quanta "
+          f"each) in {time.perf_counter() - t0:.2f} s")
+    synpa = ScanPolicy(kind="synpa", method=isc.SYNPA4_R_FEBE, model=model,
+                       matcher="refine", name="synpa4")
+    runs = {
+        "adjacent": (ScanPolicy(kind="adjacent", name="adjacent"), {}),
+        "synpa4 fifo": (synpa, {}),
+        "synpa4 synergy": (dataclasses.replace(synpa, name="synpa4-syn"),
+                           dict(admission="synergy", synergy=syn)),
+        "synpa4 fifo combined faults": (
+            synpa, dict(faults=_fault_profile(FaultProfile, "combined",
+                                              n_cores, OPEN_QUANTA))),
+    }
+    counters = ("NEED_FB_SYNCS", "TWO_OPT_SYNCS", "ADMIT_SYNCS")
+    owners = (regression, matching, device_sim)
+    sims, stats, total = {}, {}, {n: 0 for n in kernel_mods}
+    for name, (pol, kw) in runs.items():
+        sim = ClusterSim(machine, pool, n_cores, pol,
+                         PoissonArrivals(rate=rate, n_pool=len(pool)),
+                         seed=OPEN_SEED, target_scale=TARGET_SCALE,
+                         tables=tables, engine="scan", device=dev, **kw)
+        sims[name] = sim
+        for mod in kernel_mods.values():
+            mod.LAUNCHES = 0
+        before = [getattr(m, c) for m, c in zip(owners, counters)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = sim.run(OPEN_QUANTA, warmup=False)
+        first_s = time.perf_counter() - t0
+        launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+        syncs = [getattr(m, c) - b for m, c, b in zip(owners, counters,
+                                                       before)]
+        for n in total:
+            total[n] += launches[n]
+        want = OPEN_QUANTA if pol.kind == "synpa" else 0
+        if launches["pair_score"] != want or any(
+                v for n, v in launches.items() if n != "pair_score"):
+            raise AssertionError(f"open {name}: launches {launches}, "
+                                 f"expected pair_score {want} and no other")
+        timed = sim.run(OPEN_QUANTA, repeats=3)
+        per_q_ms = float(timed.policy_s[0]) * 1e3
+        if (timed.n_completed, timed.mean_slowdown) != \
+                (st.n_completed, st.mean_slowdown):
+            raise AssertionError(f"open {name}: a rerun differs")
+        if not (st.n_completed > 0 and math.isfinite(st.mean_slowdown)):
+            raise AssertionError(f"open {name}: no completed job")
+        stats[name] = st
+        faults = ""
+        if st.has_faults:
+            faults = (f"; faults: {int(st.failures.sum())} core failures, "
+                      f"{st.n_evicted} evictions, {st.n_requeued} requeues, "
+                      f"{st.n_dropped} dropped, {st.n_retry_waiting} waiting,"
+                      f" {st.n_in_flight} in flight: conservation holds")
+        _line("open", f"capacity {OPEN_CAPACITY} {name}: {st.n_arrived} "
+              f"arrived, {st.n_admitted} admitted, {st.n_completed} "
+              f"completed; slowdown mean {st.mean_slowdown!r} p95 "
+              f"{st.slowdown_percentile(95.0)!r}; mean turnaround "
+              f"{st.mean_turnaround_s!r} s; mean queue depth "
+              f"{st.mean_queue_depth!r}; wall {per_q_ms:.3f} ms a quantum "
+              f"(median of 3 after a warm run; first run {first_s:.3f} s); "
+              f"launches {launches}; host syncs: fallback flag {syncs[0]}, "
+              f"2-opt flag {syncs[1]}, admission count {syncs[2]}{faults}")
+    if not (stats["synpa4 fifo"].mean_slowdown
+            < stats["adjacent"].mean_slowdown):
+        raise AssertionError("open: synpa4 does not beat adjacent on mean "
+                             "slowdown")
+
+    def race_of(name):
+        sim = sims[name]
+        prep = device_sim._prepare_inputs(sim, OPEN_QUANTA)
+        race = device_sim._build_race(sim.policy, machine.params,
+                                      sim.capacity, OPEN_QUANTA,
+                                      prep["j_pad"], sim.admission,
+                                      prep["fcfg"], dev)
+        inputs = device_sim._commit(sim, prep, dev)
+        draws = TorchDraws(OPEN_SEED, dev)
+        torch.cuda.synchronize()
+        return lambda: race(inputs, draws)
+
+    # Host syncs of one synergy run: every one a counted exit.
+    fn = race_of("synpa4 synergy")
+    counted0 = sum(getattr(m, c) for m, c in zip(owners, counters))
+    seen = _audited(fn)
+    torch.cuda.synchronize()
+    counted = sum(getattr(m, c) for m, c in zip(owners, counters)) - counted0
+    _line("syncs", f"one open synergy run: {len(seen)} sync warnings, "
+          f"{counted} syncs counted (fallback, 2-opt and admission flags)")
+    if len(seen) != counted:
+        for msg in sorted(set(seen)):
+            _line("syncs", msg[:200])
+        raise AssertionError("uncounted host syncs in the open run")
+
+    # Where one fifo run's time goes, under the profiler.
+    fn = race_of("synpa4 fifo")
+    fn()
+    wall, seen, dev_us = _device_profile(fn)
+    busy_ms = sum(dev_us(e) for e in seen) / 1e3
+    n_kernels = sum(e.count for e in seen)
+    _line("profile", f"one open synpa4 fifo run ({OPEN_QUANTA} quanta) under "
+          f"the profiler: wall {wall * 1e3:.3f} ms, {n_kernels} kernels "
+          f"({n_kernels / OPEN_QUANTA:.1f} a quantum), device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.1f}% of the "
+          "profiled wall)")
+    for e in sorted(seen, key=dev_us, reverse=True)[:10]:
+        _line("profile", f"{dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+              f"{e.key[:100]}")
+    return total
+
+
+def _pair_score_flag_times(dev, rng, model, ps_kernel):
+    """Phase 14: pair_score with the idle vertex's flag in device memory
+    against the host-int variant, at the open path's shape (P = 1032,
+    n_valid = 1024, 5% of the slots empty, the idle vertex at row 1024).
+    Returns ``(flag ms, host-int ms)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.synpa import fused_pad
+
+    p, n_valid = fused_pad(OPEN_CAPACITY), OPEN_CAPACITY
+    st = torch.as_tensor(
+        rng.dirichlet(np.ones(4), size=n_valid).astype(np.float32),
+        device=dev)
+    valid = torch.as_tensor(rng.random(n_valid) > 0.05, device=dev)
+    coeffs = model.coeffs.contiguous()
+    on = torch.ones(1, dtype=torch.bool, device=dev)
+    off = torch.zeros(1, dtype=torch.bool, device=dev)
+    for flag, host_row in ((on, n_valid), (off, -1)):
+        got = ps_kernel.pair_score_cuda(st, coeffs, 4, n_valid, valid,
+                                        n_valid, p, idle_flag=flag)
+        want = ps_kernel.pair_score_cuda(st, coeffs, 4, n_valid, valid,
+                                         host_row, p)
+        if not torch.equal(got, want):
+            raise AssertionError(f"pair_score: the device flag "
+                                 f"{bool(flag)} differs from idle_row "
+                                 f"{host_row}")
+
+    def with_flag():
+        return ps_kernel.pair_score_cuda(st, coeffs, 4, n_valid, valid,
+                                         n_valid, p, idle_flag=on)
+
+    def with_int():
+        return ps_kernel.pair_score_cuda(st, coeffs, 4, n_valid, valid,
+                                         n_valid, p)
+
+    # Host int, flag, flag, host int: the two rounds show the noise.
+    times = {"int": [], "flag": []}
+    for name in ("int", "flag", "flag", "int"):
+        times[name].append(_gpu_ms(with_int if name == "int" else with_flag))
+    flag_ms, int_ms = (float(np.median(times[k])) for k in ("flag", "int"))
+    _line("kernel", f"pair_score fused P={p} n_valid={n_valid}, idle vertex "
+          f"at {n_valid}: flag in device memory {flag_ms * 1e3:.3f} us "
+          f"({', '.join(f'{t * 1e3:.3f}' for t in times['flag'])}), host int "
+          f"{int_ms * 1e3:.3f} us ({', '.join(f'{t * 1e3:.3f}' for t in times['int'])}); "
+          "outputs identical for both flag values")
+    return flag_ms, int_ms
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1019,23 +1389,11 @@ def main() -> int:
     draws = scan_engine.TorchDraws(RACE_SEED, dev)
     torch.cuda.synchronize()
 
-    def audited(fn):
-        with warnings.catch_warnings(record=True) as seen:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return [str(w.message) for w in seen
-                if "synchroniz" in str(w.message)]
-
-    # One deliberate sync tells how many warnings a sync raises here.
     # A deliberate sync, read as the race reads its flags, must be seen.
-    if not audited(lambda: bool(torch.ones(1, device=dev))):
+    if not _audited(lambda: bool(torch.ones(1, device=dev))):
         raise AssertionError("sync audit: a deliberate sync raised no warning")
     counted0 = regression.NEED_FB_SYNCS + matching.TWO_OPT_SYNCS
-    seen = audited(lambda: race(dt, init_mpart, init_st, draws))
+    seen = _audited(lambda: race(dt, init_mpart, init_st, draws))
     torch.cuda.synchronize()
     counted = regression.NEED_FB_SYNCS + matching.TWO_OPT_SYNCS - counted0
     _line("syncs", f"one race: {len(seen)} sync warnings, {counted} syncs "
@@ -1151,6 +1509,19 @@ def main() -> int:
     _serving_reference(dev)
     path_launches = _serving_main_path(dev, kernel_mods)
     kernels += _serving_kernel_times(dev, rng, serve_errs, path_launches)
+
+    # 12-14. The open system.
+    _open_reference(dev, model)
+    open_launches = _open_main_path(dev, model, kernel_mods)
+    flag_ms, int_ms = _pair_score_flag_times(dev, rng, model, ps_kernel)
+    kernels[0]["path_launches"] = {"race": launches["pair_score"],
+                                   "open": open_launches["pair_score"]}
+    kernels[0]["launches"] = launches["pair_score"] + open_launches["pair_score"]
+    kernels[0]["idle_flag_ms"] = flag_ms
+    kernels[0]["idle_int_ms"] = int_ms
+    for entry in kernels[1:]:
+        entry["path_launches"] = {"serve": entry["launches"],
+                                  "open": open_launches[entry["name"]]}
     _line("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -153,3 +153,51 @@ def device_pairs_partner(cost, valid, eps=1e-9,
     return device_two_opt_partner(cost, seed, valid, eps=eps,
                                   max_rounds=max_rounds,
                                   with_rounds=with_rounds)
+
+
+def device_repair_partner(cost, partner, valid, eps=1e-9,
+                          max_rounds: Optional[int] = None):
+    """Masked churn repair of a carried partner vector.
+
+    The open system's validity mask changes every quantum (arrivals fill
+    slots, departures empty them, the idle vertex toggles with the active
+    population's parity) while its shape stays put, so the carried
+    matching is repaired, not rebuilt.  ``partner`` is the previous
+    quantum's (P,) involution; ``valid`` marks the vertices to match now
+    (popcount even).  Pairs whose two ends are both still valid are kept;
+    the uncovered valid vertices (the dirty set: arrivals, widows, a
+    toggled idle vertex) are ranked by mean pairable cost among
+    themselves and paired complementarily, heaviest with lightest;
+    invalid vertices pair among themselves by index.  A bounded masked
+    2-opt (:func:`device_two_opt_partner`) then ripples the repair
+    outward through the kept pairs.
+    """
+    p = partner.shape[0]
+    idx = torch.arange(p, device=cost.device)
+    pt = partner.to(torch.int64)
+    keep = valid & valid[pt] & (pt != idx)
+    dirty = valid & ~keep
+    invalid = ~valid
+    pairable = dirty[:, None] & dirty[None, :] & (idx[:, None] != idx[None, :])
+    deg = torch.where(pairable, cost.to(torch.float32), 0.0).sum(1) \
+        / torch.clamp(pairable.sum(1), min=1)
+    # Three-band sort key: dirty vertices first (by degree), then invalid
+    # (by index), then kept (by index; they retain their partner below).
+    # Degrees are bounded by BIG, so the bands cannot interleave; within a
+    # band the float32 keys can round together, and the stable sort then
+    # keeps index order, as the reference's does.
+    fidx = idx.to(torch.float32)
+    key = torch.where(dirty, torch.clamp(deg, max=BIG),
+                      torch.where(invalid, 2.0 * BIG + fidx, 4.0 * BIG + fidx))
+    order = torch.argsort(key, stable=True)
+    nd = dirty.sum()
+    ninv = invalid.sum()
+    mate_pos = torch.where(
+        idx < nd, nd - 1 - idx,
+        torch.where(idx < nd + ninv, nd + ((idx - nd) ^ 1), idx))
+    # ``order`` is a permutation, so its argsort inverts it: a gather in
+    # place of the seed's scatter.
+    repaired = order[mate_pos][torch.argsort(order, stable=True)]
+    repaired = torch.where(keep, pt, repaired)
+    return device_two_opt_partner(cost, repaired, valid, eps=eps,
+                                  max_rounds=max_rounds)

@@ -437,13 +437,14 @@ def _gn_with_fallback(model: CategoryModel, frac_i, frac_j,
 
 
 def pair_cost_matrix(model: CategoryModel, st_stacks, n_valid=None,
-                     valid=None, idle_row: int = -1, p=None):
+                     valid=None, idle_row: int = -1, p=None, idle_flag=None):
     """Dense all-pairs cost: cost[i, j] = slowdown(i|j) + slowdown(j|i).
 
     st_stacks: (rows, 4) ST stacks.  Returns (p, p) (``p`` defaults to
     ``rows``); the diagonal and, with ``n_valid``, every padding row/column
     carry the ``DIAG`` sentinel; ``valid`` and ``idle_row`` add the
-    matcher's cost preparation.  See
+    matcher's cost preparation, and ``idle_flag`` (a one-element bool
+    tensor) turns the idle vertex on or off on the device.  See
     :func:`repro_torch.kernels.pair_score.ops.pair_costs`.
     """
     from repro_torch.kernels.pair_score import ops as pair_score_ops
@@ -451,4 +452,4 @@ def pair_cost_matrix(model: CategoryModel, st_stacks, n_valid=None,
     return pair_score_ops.pair_costs(
         st_stacks.to(torch.float32).contiguous(), model.coeffs,
         n_categories=model.n_categories, n_valid=n_valid, valid=valid,
-        idle_row=idle_row, p=p)
+        idle_row=idle_row, p=p, idle_flag=idle_flag)

@@ -52,8 +52,12 @@ def make_fused_step(
       estimate should refresh), *solo* (slot ran alone: its measured
       fractions are its ST stack), *valid* (slot hosts an application),
       *fresh* (reset the slot to the uniform placeholder);
-    * ``idle``      host bool — augment the idle-context vertex (row
-      ``n``) with :data:`repro_torch.core.matching.IDLE_COST` edges;
+    * ``idle``      bool — augment the idle-context vertex (row ``n``)
+      with :data:`repro_torch.core.matching.IDLE_COST` edges: a host bool
+      (the closed race), or a one-element bool tensor on the counters'
+      device (the open system, whose population parity is a device
+      value), which the ``pair_score`` kernel reads itself, so the host
+      never waits for it;
 
     and returns ``(cost (P, P) f32, st (n, 4) f32)``.  Each co-running pair
     is solved once, by its lower-index side, and both slots receive their
@@ -113,9 +117,13 @@ def make_fused_step(
         # Step 2 and the Step 3 prep in one call: all-pairs Eq. 4 scoring
         # into the padded (P, P) matrix, inactive slots sentineled out, the
         # idle vertex (row n) wired when ``idle``.
+        if isinstance(idle, torch.Tensor):   # the kernel reads the flag
+            idle_row, flag = n, idle.reshape(1)
+        else:
+            idle_row, flag = (n if idle else -1), None
         cost = regression.pair_cost_matrix(
-            model, st, n_valid=n, valid=valid_mask,
-            idle_row=n if idle else -1, p=p)
+            model, st, n_valid=n, valid=valid_mask, idle_row=idle_row, p=p,
+            idle_flag=flag)
         return cost, st
 
     return step

@@ -18,8 +18,8 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "SOURCE", "LIB", "LAUNCHES",
            "library_path", "pair_score_cuda"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "pair_score.cu"
-LIB = CudaLibrary(SOURCE, {"pair_score_launch": (PTR, PTR, PTR, PTR, INT, INT,
-                                                 INT, INT, PTR)})
+LIB = CudaLibrary(SOURCE, {"pair_score_launch": (PTR, PTR, PTR, PTR, PTR, INT,
+                                                 INT, INT, INT, PTR)})
 
 #: Launches of the CUDA kernel in this process; :func:`pair_score_cuda`
 #: adds one per launch and nothing else touches it.
@@ -30,7 +30,8 @@ library_path = LIB.library_path
 
 def pair_score_cuda(st: torch.Tensor, coeffs: torch.Tensor,
                     n_categories: int = 4, n_valid=None, valid=None,
-                    idle_row: int = -1, p=None) -> torch.Tensor:
+                    idle_row: int = -1, p=None,
+                    idle_flag=None) -> torch.Tensor:
     """Launch the kernel: (p, p) f32 pair costs, ready for the matcher.
 
     ``st`` (rows, 4) f32 and ``coeffs`` (4, 4) f32 on one GPU; ``p``
@@ -38,7 +39,10 @@ def pair_score_cuda(st: torch.Tensor, coeffs: torch.Tensor,
     ``min(rows, p)``) the count of leading vertices that may be valid;
     stack rows at or past ``n_valid`` are never read.  ``valid``: an
     optional (n_valid,) bool mask on the same GPU; ``idle_row``: the
-    idle-context vertex, or -1.  Entry (i, j) is ``IDLE_COST`` when one
+    idle-context vertex, or -1; ``idle_flag``: an optional one-element
+    bool tensor on the same GPU, read by the kernel: ``idle_row`` is the
+    idle vertex only while it holds True (the host never reads it).
+    Entry (i, j) is ``IDLE_COST`` when one
     side is the idle vertex and the other valid, else ``DIAG`` when i == j
     or either side is not valid, else the Eq. 4 cost (see
     :func:`repro_torch.kernels.pair_score.ref.pair_costs_plain`).
@@ -71,9 +75,19 @@ def pair_score_cuda(st: torch.Tensor, coeffs: torch.Tensor,
             raise ValueError(f"pair_score_cuda: valid must be a contiguous "
                              f"({n_valid},) mask, got {tuple(valid.shape)}")
         valid_ptr = valid.data_ptr()
+    flag_ptr = None
+    if idle_flag is not None:
+        if idle_flag.device != st.device:
+            raise ValueError(f"pair_score_cuda: idle_flag is on "
+                             f"{idle_flag.device}, not {st.device}")
+        if idle_flag.dtype != torch.bool or idle_flag.numel() != 1:
+            raise TypeError(f"pair_score_cuda: idle_flag must be one "
+                            f"torch.bool, got {idle_flag.dtype} "
+                            f"{tuple(idle_flag.shape)}")
+        flag_ptr = idle_flag.data_ptr()
     out = torch.empty((p, p), dtype=torch.float32, device=st.device)
     LIB.launch("pair_score_launch", st.data_ptr(), coeffs.data_ptr(),
-               valid_ptr, out.data_ptr(), p, n_valid, n_categories,
+               valid_ptr, flag_ptr, out.data_ptr(), p, n_valid, n_categories,
                int(idle_row), torch.cuda.current_stream(st.device).cuda_stream)
     LAUNCHES += 1
     return out

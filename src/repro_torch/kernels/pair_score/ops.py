@@ -7,7 +7,7 @@ from repro_torch.kernels.pair_score.ref import pair_costs_plain
 
 
 def pair_costs(st, coeffs, n_categories: int = 4, n_valid=None, valid=None,
-               idle_row: int = -1, p=None):
+               idle_row: int = -1, p=None, idle_flag=None):
     """All-pairs SYNPA pair costs: (rows, 4) ST stacks -> (p, p) f32.
 
     A CUDA tensor goes to the hand-written kernel, a CPU tensor to the
@@ -18,13 +18,15 @@ def pair_costs(st, coeffs, n_categories: int = 4, n_valid=None, valid=None,
     every cost entry touching them carries the ``DIAG`` sentinel.  With
     ``valid`` (an (n_valid,) bool mask) and ``idle_row`` the result is the
     matcher's cost matrix: ``DIAG`` on every entry of an invalid vertex,
-    ``IDLE_COST`` between the idle vertex and each valid one (see
+    ``IDLE_COST`` between the idle vertex and each valid one; with
+    ``idle_flag`` (a one-element bool tensor on ``st``'s device) the idle
+    vertex is ``idle_row`` only while the flag holds True (see
     :func:`repro_torch.kernels.pair_score.ref.pair_costs_plain`).
     """
     if st.device.type == "cuda":
         return kernel.pair_score_cuda(st, coeffs, n_categories, n_valid,
-                                      valid, idle_row, p)
+                                      valid, idle_row, p, idle_flag)
     if st.device.type != "cpu":
         raise ValueError(f"pair_costs: no path for device {st.device}")
     return pair_costs_plain(st, coeffs, n_categories, n_valid, valid,
-                            idle_row, p)
+                            idle_row, p, idle_flag)

@@ -41,7 +41,7 @@ def pair_cost_ref(st, coeffs, n_categories: int = 4):
 
 
 def pair_costs_plain(st, coeffs, n_categories: int = 4, n_valid=None,
-                     valid=None, idle_row: int = -1, p=None):
+                     valid=None, idle_row: int = -1, p=None, idle_flag=None):
     """The whole function of the CUDA kernel: :func:`pair_cost_ref` on the
     first ``n_valid`` stacks, padded to (p, p), and the matcher's cost
     preparation.
@@ -51,7 +51,9 @@ def pair_costs_plain(st, coeffs, n_categories: int = 4, n_valid=None,
     Vertex v is valid when v < n_valid and ``valid[v]`` (``valid``: an
     optional (n_valid,) bool mask).  Every entry whose row or column is not
     valid carries ``DIAG``; with ``idle_row`` >= 0, entries (idle_row, j)
-    and (i, idle_row) carry ``IDLE_COST`` where the other side is valid.
+    and (i, idle_row) carry ``IDLE_COST`` where the other side is valid;
+    with ``idle_flag`` (a one-element bool tensor) only while it holds
+    True, read as a tensor, never on the host.
     """
     rows = st.shape[0]
     p = rows if p is None else int(p)
@@ -67,6 +69,9 @@ def pair_costs_plain(st, coeffs, n_categories: int = 4, n_valid=None,
         out = torch.where(invalid, DIAG, out)
     if valid is None and idle_row < 0:
         return out
+    is_idle = idx == idle_row
+    if idle_flag is not None:
+        is_idle = is_idle & idle_flag.reshape(())
     if valid is None:
         valid = torch.ones(n_valid, dtype=torch.bool, device=device)
     # The cost preparation of the fused SYNPA step, entry for entry:
@@ -75,7 +80,6 @@ def pair_costs_plain(st, coeffs, n_categories: int = 4, n_valid=None,
         [valid, torch.zeros(p - n_valid, dtype=torch.bool, device=device)])
     pairv = validp[:, None] & validp[None, :]
     out = torch.where(pairv, out, DIAG)
-    is_idle = idx == idle_row
     out = torch.where(is_idle[:, None] & validp[None, :], IDLE_COST, out)
     out = torch.where(validp[:, None] & is_idle[None, :], IDLE_COST, out)
     return out

@@ -1,0 +1,40 @@
+"""The open-system layer: applications arrive, queue for a hardware
+context, run to completion and depart, while SYNPA re-pairs every quantum.
+
+* :class:`ClusterSim`        — a run configuration; ``engine="scan"`` runs
+                               the whole horizon on the device
+                               (:mod:`repro_torch.online.device_sim`);
+* :class:`SynergyAdmission`  — profile-informed placement and ST hints;
+* :class:`PoissonArrivals` / :class:`TraceArrivals` /
+  :class:`InitialBatch`      — traffic models (:func:`presample`
+                               materialises any of them);
+* :class:`FaultProfile`      — seeded core failure/recovery and stragglers.
+"""
+
+from repro_torch.online.admission import SynergyAdmission
+from repro_torch.online.arrivals import (
+    ArrivalProcess,
+    InitialBatch,
+    PoissonArrivals,
+    TraceArrivals,
+    presample,
+)
+from repro_torch.online.faults import (
+    FAULT_RNG_STREAM_VERSION,
+    FaultProfile,
+    FaultSchedule,
+)
+from repro_torch.online.sim import ClusterSim
+
+__all__ = [
+    "ArrivalProcess",
+    "ClusterSim",
+    "FAULT_RNG_STREAM_VERSION",
+    "FaultProfile",
+    "FaultSchedule",
+    "InitialBatch",
+    "PoissonArrivals",
+    "SynergyAdmission",
+    "TraceArrivals",
+    "presample",
+]

@@ -1,0 +1,645 @@
+"""Device-resident open-system engine — ``ClusterSim(engine="scan")``.
+
+The whole open-system cycle
+
+    arrivals -> admission -> scheduling -> machine quantum -> departures
+
+runs on the simulation's device, quantum by quantum, as a Python loop of
+device operations (the closed race's form, ``repro_torch.smt.scan_engine``).
+All shapes are churn-stable: arrivals and departures change mask contents
+and head/tail indices, never shapes.
+
+* **Arrivals are data.**  The arrival process is pre-sampled on the host
+  from ``numpy.default_rng(seed + 4242)`` (:func:`repro_torch.online.
+  arrivals.presample`) into flat, arrival-sorted ``(arrive_q, pool,
+  target)`` job arrays shipped to the device once.
+* **The FIFO queue is a pair of indices.**  Jobs are admitted in arrival
+  order, so the waiting queue is the window ``[head, tail)`` of the sorted
+  job array: ``tail`` is a masked count per quantum, ``head`` advances by
+  the admitted count.
+* **Admission.**  ``"fifo"`` places the k-th dequeued job on the k-th
+  lowest free context.  ``"synergy"`` runs the
+  :class:`repro_torch.online.admission.SynergyAdmission` rule: each
+  dequeued job in turn goes to the free context whose core-resident
+  co-runner has the best Eq. 4 pool cost (empty cores score the expected
+  pool cost; ties to the lowest slot), and its solo stack seeds its ST
+  estimate.  Its trip count, the number of jobs admitted this quantum, is
+  read on the host once a quantum: the engine's one sync of its own,
+  counted in :data:`ADMIT_SYNCS`.
+* **Scheduling reuses the fused SYNPA step**
+  (:func:`repro_torch.core.synpa.make_fused_step`) with membership-masked
+  rows.  The idle-context flag (the active population's parity) stays on
+  the device: the ``pair_score`` kernel reads it.  The churn-repair
+  matcher (:func:`repro_torch.core.matching.device_repair_partner`) keeps
+  surviving pairs and repairs the rest; its 2-opt reads its convergence
+  flag as the closed race's does (``matching.TWO_OPT_SYNCS``), and the
+  solve its fallback flag (``regression.NEED_FB_SYNCS``).
+* **The machine quantum is the closed race's**, through the slot ->
+  application indirection (``aid``): only active contexts advance;
+  departures (``progress >= target``) log a fractional finish quantum and
+  free their context at quantum end.
+* **Faults are data.**  A :class:`repro_torch.online.faults.FaultProfile`
+  is materialised on the host into per-context ``(up, speed)`` arrays:
+  jobs on down cores are evicted before admission, re-admitted from a
+  bounded retry pool ahead of the fresh queue, and stragglers retire
+  ``speed``-scaled instructions.
+* **Job bookkeeping is a log.**  ``admit_q``/``finish_q`` (and, with
+  faults, ``retries``/``retry_at``/``saved``) are flat per-job tensors.
+  Scatters whose masked-off rows must go nowhere write to a sink element
+  one past the last job, which is dropped when the logs are fetched once
+  at the end of the run.
+
+Random draws are data, as in the closed race: ``draws.noise(q, c)`` and
+``draws.phase(q, lam)`` with the closed race's keys, so
+:class:`repro_torch.smt.scan_engine.TorchDraws` is the default and a test
+can feed the reference's own draws.  With the same draws the run is the
+reference's ``run_device_sim``: integer logs identical, finish quanta to
+float32.  The first synpa pairing is the repair of the identity carry.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import isc, matching
+from repro_torch.core.synpa import fused_pad, make_fused_step
+from repro_torch.online.arrivals import presample
+from repro_torch.online.faults import RETRY_NEVER
+from repro_torch.smt.metrics import OnlineStats
+from repro_torch.smt.scan_engine import (
+    DeviceTables,
+    ScanPolicy,
+    TorchDraws,
+    _corun_components_scan,
+    _machine_partner_of,
+    _pmu_counters_scan,
+)
+
+#: Kinds of :class:`repro_torch.smt.scan_engine.ScanPolicy` the open system
+#: runs: the fused SYNPA tier and the deterministic slot-ordered baseline.
+DEVICE_SIM_KINDS = ("synpa", "adjacent")
+
+#: Host reads of synergy admission's trip count (once a quantum under
+#: ``admission="synergy"``): the open loop's own device-to-host sync.
+ADMIT_SYNCS = 0
+
+
+class _OpenCarry(NamedTuple):
+    """The open system's state between quanta: context membership, queue
+    head and per-job logs.  Shapes depend only on (capacity, padded job
+    count).  Per-job logs that take masked scatters carry a sink element
+    at index ``j_pad``."""
+
+    app_id: torch.Tensor        # (C,) int64  pool row per context (-1 = empty)
+    job_at: torch.Tensor        # (C,) int64  job id per context (-1)
+    phase_idx: torch.Tensor     # (C,) int64
+    phase_left: torch.Tensor    # (C,) f32
+    progress: torch.Tensor      # (C,) f32  retired instructions, current job
+    target: torch.Tensor        # (C,) f32  departure target (inf when empty)
+    head: torch.Tensor          # ()   int64 jobs admitted so far
+    counters: torch.Tensor      # (C, 5) f32 previous quantum's PMU rows
+    ran: torch.Tensor           # (C,) bool context executed last quantum
+    partner_prev: torch.Tensor  # (C,) int64 machine partner last quantum
+    mpart: torch.Tensor         # (P,) int64 matcher partner carry
+    st: torch.Tensor            # (C, 4) f32 ST estimates
+    admit_q: torch.Tensor       # (J,) int64 admission quantum per job (-1)
+    finish_q: torch.Tensor      # (J + 1,) f32 fractional finish quantum (inf)
+
+
+class _FaultCarry(NamedTuple):
+    """Per-job retry bookkeeping of a faulted run, each with a sink."""
+
+    retries: torch.Tensor       # (J + 1,) int64 evictions suffered so far
+    retry_at: torch.Tensor      # (J + 1,) int64 quantum eligible again
+    saved: torch.Tensor         # (J + 1,) f32  progress to restore
+
+
+class _Inputs(NamedTuple):
+    """What a run ships to the device once, before its first quantum."""
+
+    dt: DeviceTables
+    job_pool: torch.Tensor      # (J,) int64
+    job_arrive: torch.Tensor    # (J,) int64 (padding arrives never)
+    job_target: torch.Tensor    # (J,) f32
+    syn_cost: torch.Tensor      # (A, A) f32
+    syn_mean: torch.Tensor      # (A,) f32
+    syn_stacks: torch.Tensor    # (A, 4) f32
+    fup: Optional[torch.Tensor]     # (Q, C) bool
+    fspeed: Optional[torch.Tensor]  # (Q, C) f32
+
+
+def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
+                   admission: str, faults_cfg, device):
+    """The per-quantum ``body(inp, state, draws, q) -> (state, outs)``, the
+    initial state ``carry0()`` and ``unpack(state, outs)``, which stacks
+    the per-quantum outputs and slices the logs to their jobs."""
+    faults = faults_cfg is not None
+    if faults:
+        max_retries, backoff, preserve = faults_cfg
+    c = capacity
+    p = fused_pad(c)
+    idx = torch.arange(c, device=device)
+    jobs_idx = torch.arange(j_pad, device=device)
+    cycles = float(np.float32(params.quantum_cycles))
+    use_hints = spec.kind == "synpa" and admission == "synergy"
+    if spec.kind == "synpa":
+        if spec.method is None or spec.model is None:
+            raise ValueError("synpa open system needs a stack method and a "
+                             "fitted model")
+        if spec.matcher not in ("refine", "full"):
+            raise ValueError(f"unknown matcher {spec.matcher!r}")
+        fstep = make_fused_step(spec.method, spec.model)
+        ncat = spec.method.n_categories
+    else:
+        fstep = None
+        ncat = 4
+    uniform = torch.as_tensor(isc.uniform_stack(ncat), device=device)
+    full_budget = 4 * (p // 2)
+    pad_false = torch.zeros(p - c - 1, dtype=torch.bool, device=device)
+
+    def clip_job(j):
+        return torch.clamp(j, 0, j_pad - 1)
+
+    # ----------------------------------------------------------- admission
+    def admit_fifo(app_id, job_at, free, head, tail, job_pool):
+        """k-th dequeued job -> k-th lowest free context."""
+        n_admit = torch.minimum(tail - head, free.sum())
+        frank = torch.cumsum(free.to(torch.int64), 0) - 1
+        take = free & (frank < n_admit)
+        jidx = torch.where(take, head + frank, j_pad)
+        pid = job_pool[clip_job(jidx)]
+        return (torch.where(take, pid, app_id), torch.where(take, jidx, job_at),
+                take, head + n_admit)
+
+    def admit_synergy(app_id, job_at, head, tail, inp):
+        """FIFO dequeue order, predicted-best placement: each dequeued job
+        sees the residents the previous one placed.  The trip count is
+        read on the host once (counted in ``ADMIT_SYNCS``)."""
+        global ADMIT_SYNCS
+        n_admit = torch.minimum(tail - head, (app_id < 0).sum())
+        ADMIT_SYNCS += 1
+        job_at0 = job_at
+        for k in range(int(n_admit)):
+            # One-element index tensors: a 0-d one would be read on the
+            # host.
+            j = (head + k).reshape(1)
+            pid = inp.job_pool[clip_job(j)]
+            mate = app_id[idx ^ 1]
+            mcost = torch.where(mate >= 0,
+                                inp.syn_cost[pid, torch.clamp(mate, min=0)],
+                                inp.syn_mean[pid])
+            cost_s = torch.where(app_id < 0, mcost, torch.inf)
+            put = idx == torch.argmin(cost_s)   # ties -> lowest slot
+            app_id = torch.where(put, pid, app_id)
+            job_at = torch.where(put, j, job_at)
+        return app_id, job_at, job_at != job_at0, head + n_admit
+
+    # ------------------------------------------------------------ policies
+    def adjacent_partner(active, n_active):
+        """Slot-ordered pairing of the active set; odd leaves the highest
+        active rank solo."""
+        arank = torch.cumsum(active.to(torch.int64), 0) - 1
+        slot_of_rank = torch.zeros(c + 1, dtype=torch.int64,
+                                   device=device).scatter(
+            0, torch.where(active, arank, c), idx)[:c]
+        mate = arank ^ 1
+        return torch.where(active & (mate < n_active),
+                           slot_of_rank[torch.clamp(mate, 0, c - 1)], idx)
+
+    # ------------------------------------------------ open machine quantum
+    def open_quantum(dt, aid, active, phase_idx, phase_left, progress,
+                     target, partner, draws, q, speed=None):
+        """Membership-masked quantum: departures, no relaunch.  ``speed``
+        (straggler capability) scales retirement only."""
+        aid_safe = torch.clamp(aid, min=0)
+        nph = dt.n_phases[aid_safe]
+        ph = phase_idx % nph
+        partner_m = torch.where(active & active[partner], partner, idx)
+        comps = _corun_components_scan(dt, ph, partner_m, params,
+                                       aid=aid_safe)
+        cpi = comps.sum(-1)
+        retired = torch.where(active, cycles / cpi * dt.retire[aid_safe], 0.0)
+        if speed is not None:
+            retired = retired * speed
+        after = progress + retired
+        done = active & (after >= target)
+        frac = torch.clamp((target - progress)
+                           / torch.clamp(retired, min=1e-9), 0.0, 1.0)
+        counters = _pmu_counters_scan(comps, dt.omega[aid_safe],
+                                      dt.retire[aid_safe], cycles, params,
+                                      draws.noise(q, c))
+        counters = torch.where(active[:, None], counters, 0.0)
+        # Phase advance for survivors only (departed jobs leave at quantum
+        # end); draws are per (context, quantum), occupancy-blind.
+        surv = active & ~done
+        left = phase_left - 1.0
+        trans = surv & (left <= 0.0)
+        nidx = phase_idx + trans.to(torch.int64)
+        lam = dt.duration[aid_safe, nidx % nph]
+        drawn = draws.phase(q, lam).to(torch.float32)
+        new_left = torch.where(trans, torch.clamp(drawn, min=1.0),
+                               torch.where(surv, left, phase_left))
+        new_idx = torch.where(trans, nidx, phase_idx)
+        return counters, after, done, frac, new_idx, new_left
+
+    # --------------------------------------------------------------- body
+    def body(inp: _Inputs, state, draws, q: int):
+        carry, fc = state
+        dt = inp.dt
+        # 1. Arrivals: the queue tail is a masked count over the sorted
+        # job array.
+        tail = (inp.job_arrive <= q).sum()
+        app_id, job_at = carry.app_id, carry.job_at
+        if faults:
+            # 1b. Fault eviction: jobs on cores that are down this quantum
+            # leave before admission.
+            upq = inp.fup[q]
+            speedq = inp.fspeed[q]
+            evict = (app_id >= 0) & ~upq
+            ej = torch.where(evict, job_at, j_pad)
+            retries = fc.retries.index_add(0, ej, evict.to(torch.int64))
+            over = retries[ej] > max_retries
+            requeue_c = evict & ~over          # dropped past max_retries
+            retry_at = fc.retry_at.scatter(
+                0, torch.where(requeue_c, ej, j_pad),
+                torch.full((c,), q + backoff, dtype=torch.int64,
+                           device=device))
+            saved_val = (carry.progress if preserve
+                         else torch.zeros(c, device=device))
+            saved = fc.saved.scatter(0, ej, saved_val)
+            n_evict = evict.sum()
+            app_id = torch.where(evict, -1, app_id)
+            job_at = torch.where(evict, -1, job_at)
+
+            # 2a. Retry pool ahead of the fresh queue: the r-th eligible
+            # victim (ascending job id) re-enters on the r-th lowest free
+            # up context.
+            free = (app_id < 0) & upq
+            elig = retry_at[:j_pad] <= q
+            n_take = torch.minimum(elig.sum(), free.sum())
+            erank = torch.cumsum(elig.to(torch.int64), 0) - 1
+            take_j = elig & (erank < n_take)
+            job_of_rank = torch.full((c + 1,), j_pad, dtype=torch.int64,
+                                     device=device).scatter(
+                0, torch.where(take_j, erank, c), jobs_idx)[:c]
+            frank = torch.cumsum(free.to(torch.int64), 0) - 1
+            rtake = free & (frank < n_take)
+            jr = torch.where(rtake,
+                             job_of_rank[torch.clamp(frank, 0, c - 1)], j_pad)
+            app_id = torch.where(rtake, inp.job_pool[clip_job(jr)], app_id)
+            job_at = torch.where(rtake, jr, job_at)
+            retry_at = retry_at.scatter(
+                0, torch.where(rtake, jr, j_pad),
+                torch.full((c,), int(RETRY_NEVER), dtype=torch.int64,
+                           device=device))
+            n_requeue = rtake.sum()
+            free = free & ~rtake
+        else:
+            free = app_id < 0
+
+        # 2. Admission into free contexts (FIFO dequeue order either way).
+        if admission == "synergy":
+            app_id, job_at, took_f, head = admit_synergy(
+                app_id, job_at, carry.head, tail, inp)
+        else:
+            app_id, job_at, took_f, head = admit_fifo(
+                app_id, job_at, free, carry.head, tail, inp.job_pool)
+        # ``took``: every newly placed context (fresh and retry); ``took_f``
+        # the fresh ones, which alone move the queue head and admit log.
+        took = (took_f | rtake) if faults else took_f
+        jidx = clip_job(torch.where(took, job_at, j_pad))
+        target = torch.where(took, inp.job_target[jidx], carry.target)
+        phase_idx = torch.where(took, 0, carry.phase_idx)
+        phase_left = torch.where(
+            took, dt.duration[torch.clamp(app_id, min=0), 0],
+            carry.phase_left)
+        if faults:
+            # Re-admissions restart at phase 0 with their saved progress.
+            progress = torch.where(
+                rtake, saved[jidx],
+                torch.where(took_f, 0.0, carry.progress))
+        else:
+            progress = torch.where(took, 0.0, carry.progress)
+        # Fresh admissions are the queue window [carry.head, head).
+        admit_q = torch.where((jobs_idx >= carry.head) & (jobs_idx < head),
+                              q, carry.admit_q)
+        st = carry.st
+        if use_hints:
+            # A newcomer's estimate is its profiled solo stack.
+            st = torch.where(took[:, None],
+                             inp.syn_stacks[torch.clamp(app_id, min=0)], st)
+
+        active = app_id >= 0
+        n_active = active.sum()
+        odd = (n_active % 2) == 1
+        queue_depth = tail - head
+
+        # 3. Policy: pair the active population off the previous quantum's
+        # counters.
+        if spec.kind == "adjacent":
+            partner = adjacent_partner(active, n_active)
+            mpart = carry.mpart
+        else:
+            solve = carry.ran & (carry.partner_prev != idx)
+            solo_m = carry.ran & (carry.partner_prev == idx)
+            fresh = torch.zeros_like(took) if use_hints else took
+            masks = torch.stack([solve, solo_m, active, fresh])
+            cost, st = fstep(carry.counters, carry.partner_prev, st, masks,
+                             odd)
+            valid_p = torch.cat([active, odd.reshape(1), pad_false])
+            if spec.matcher == "full":
+                mpart = matching.device_pairs_partner(
+                    cost, valid_p, eps=spec.refine_eps,
+                    max_rounds=full_budget)
+            else:
+                mpart = matching.device_repair_partner(
+                    cost, carry.mpart, valid_p, eps=spec.refine_eps,
+                    max_rounds=spec.refine_rounds)
+            partner = torch.where(active, _machine_partner_of(mpart, c), idx)
+
+        # 4. One membership-masked machine quantum, 5. departures.
+        counters, after, done, frac, phase_idx, phase_left = open_quantum(
+            dt, app_id, active, phase_idx, phase_left, progress, target,
+            partner, draws, q, speed=speedq if faults else None)
+        finish_q = carry.finish_q.scatter(
+            0, torch.where(done, job_at, j_pad), q + frac)
+        n_solo = (active & (partner == idx)).sum()
+        new = _OpenCarry(
+            app_id=torch.where(done, -1, app_id),
+            job_at=torch.where(done, -1, job_at),
+            phase_idx=phase_idx,
+            phase_left=phase_left,
+            progress=after,
+            target=torch.where(done, torch.inf, target),
+            head=head,
+            counters=counters,
+            ran=active,
+            partner_prev=partner,
+            mpart=mpart,
+            st=st,
+            admit_q=admit_q,
+            finish_q=finish_q,
+        )
+        outs = (queue_depth, n_active, n_solo)
+        if faults:
+            outs = outs + (n_evict, n_requeue)
+            fc = _FaultCarry(retries=retries, retry_at=retry_at, saved=saved)
+        return (new, fc), outs
+
+    def carry0():
+        ocarry = _OpenCarry(
+            app_id=torch.full((c,), -1, dtype=torch.int64, device=device),
+            job_at=torch.full((c,), -1, dtype=torch.int64, device=device),
+            phase_idx=torch.zeros(c, dtype=torch.int64, device=device),
+            phase_left=torch.zeros(c, device=device),
+            progress=torch.zeros(c, device=device),
+            target=torch.full((c,), torch.inf, device=device),
+            head=torch.zeros((), dtype=torch.int64, device=device),
+            counters=torch.zeros((c, 5), device=device),
+            ran=torch.zeros(c, dtype=torch.bool, device=device),
+            partner_prev=idx,
+            mpart=torch.arange(p, device=device),
+            st=uniform[None, :].repeat(c, 1),
+            admit_q=torch.full((j_pad,), -1, dtype=torch.int64,
+                               device=device),
+            finish_q=torch.full((j_pad + 1,), torch.inf, device=device),
+        )
+        fc = _FaultCarry(
+            retries=torch.zeros(j_pad + 1, dtype=torch.int64, device=device),
+            retry_at=torch.full((j_pad + 1,), int(RETRY_NEVER),
+                                dtype=torch.int64, device=device),
+            saved=torch.zeros(j_pad + 1, device=device),
+        ) if faults else None
+        return ocarry, fc
+
+    def unpack(state, outs):
+        ocarry, fc = state
+        cols = [torch.stack(col) for col in zip(*outs)]
+        res = (ocarry.admit_q, ocarry.finish_q[:j_pad]) + tuple(cols[:3])
+        if faults:
+            res = res + (fc.retries[:j_pad], fc.retry_at[:j_pad]) \
+                + tuple(cols[3:5])
+        return res
+
+    return body, carry0, unpack
+
+
+def _build_race(spec: ScanPolicy, params, capacity: int, n_quanta: int,
+                j_pad: int, admission: str, faults_cfg=None, device=None):
+    """One open-system run: ``race(inputs, draws)`` -> ``(admit_q (J,),
+    finish_q (J,), queue_depth (Q,), n_active (Q,), n_solo (Q,))`` on the
+    device, and with ``faults_cfg`` (``(max_retries, backoff_quanta,
+    preserve_progress)``) also ``retries (J,), retry_at (J,), evictions
+    (Q,), requeues (Q,)``."""
+    body, carry0, unpack = _make_open_ops(spec, params, capacity, j_pad,
+                                          admission, faults_cfg, device)
+
+    def race(inputs: _Inputs, draws):
+        state = carry0()
+        outs = []
+        for q in range(n_quanta):
+            state, out = body(inputs, state, draws, q)
+            outs.append(out)
+        return unpack(state, outs)
+
+    return race
+
+
+def _prepare_inputs(sim, n_quanta: int):
+    """Host-side prologue: pre-sample arrivals (and the fault schedule when
+    the sim carries a FaultProfile), build the flat job arrays and the
+    synergy tables.  Everything returned is numpy."""
+    machine = sim.machine
+    pool = sim.pool
+    rng_arr = np.random.default_rng(sim.seed + 4242)
+    arrive_q, pids = presample(sim.arrivals, n_quanta, rng_arr)
+    j = int(pids.size)
+    # Jobs pad to the next power of two, as the reference's compiled race
+    # keys them.
+    j_pad = max(8, 1 << (j - 1).bit_length()) if j else 8
+    pool_target = np.array(
+        [machine.target_instructions(pr) for pr in pool]
+    ) * sim.target_scale
+    pool_rate = np.array([machine.solo_retire_rate(pr) for pr in pool])
+    job_pool = np.zeros(j_pad, np.int64)
+    job_arrive = np.full(j_pad, n_quanta, np.int64)  # padding never arrives
+    job_target = np.full(j_pad, np.inf, np.float32)
+    if j:
+        job_pool[:j] = pids
+        job_arrive[:j] = arrive_q
+        job_target[:j] = pool_target[pids]
+    n_apps = sim.tables.n_apps
+    if sim.admission == "synergy":
+        syn_cost = np.asarray(sim.synergy.pool_cost, np.float32)
+        syn_mean = np.asarray(sim.synergy.mean_cost, np.float32)
+        syn_stacks = np.asarray(sim.synergy.stacks, np.float32)
+    else:
+        syn_cost = np.zeros((n_apps, n_apps), np.float32)
+        syn_mean = np.zeros(n_apps, np.float32)
+        syn_stacks = np.zeros((n_apps, isc.N_CATS), np.float32)
+    faults = sim.faults
+    if faults is not None:
+        sched = faults.schedule(n_quanta, sim.n_cores, sim.seed)
+        fcfg = faults.static_config
+        fup = sched.ctx_up()
+        fspeed = sched.ctx_speed()
+    else:
+        sched, fcfg, fup, fspeed = None, None, None, None
+    return dict(
+        arrive_q=arrive_q, pids=pids, j=j, j_pad=j_pad,
+        pool_rate=pool_rate, job_pool=job_pool, job_arrive=job_arrive,
+        job_target=job_target, syn_cost=syn_cost, syn_mean=syn_mean,
+        syn_stacks=syn_stacks, faults=faults, sched=sched, fcfg=fcfg,
+        fup=fup, fspeed=fspeed,
+    )
+
+
+def _commit(sim, prep, device) -> _Inputs:
+    """Ship a run's inputs to the device, once."""
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    faulted = prep["fcfg"] is not None
+    return _Inputs(
+        dt=DeviceTables.build(sim.tables, device),
+        job_pool=t(prep["job_pool"], torch.int64),
+        job_arrive=t(prep["job_arrive"], torch.int64),
+        job_target=t(prep["job_target"], torch.float32),
+        syn_cost=t(prep["syn_cost"], torch.float32),
+        syn_mean=t(prep["syn_mean"], torch.float32),
+        syn_stacks=t(prep["syn_stacks"], torch.float32),
+        fup=t(prep["fup"], torch.bool) if faulted else None,
+        fspeed=t(prep["fspeed"], torch.float32) if faulted else None,
+    )
+
+
+def _check_conservation(prep, n_quanta, admit, finish, retries, retry_at):
+    """The job-conservation invariant of a faulted run: every arrived job
+    is exactly one of completed / in flight / queued / waiting out a retry
+    backoff / dropped."""
+    j = prep["j"]
+    if not j:
+        return
+    max_retries = prep["fcfg"][0]
+    admit = admit[:j]
+    finish = finish[:j]
+    retries = retries[:j]
+    retry_at = retry_at[:j]
+    completed = np.isfinite(finish)
+    waiting = retry_at < int(RETRY_NEVER)
+    dropped = retries > max_retries
+    queued = admit < 0
+    in_flight = (~completed) & (~waiting) & (~dropped) & (~queued)
+    states = (completed.astype(int) + waiting.astype(int)
+              + dropped.astype(int) + queued.astype(int)
+              + in_flight.astype(int))
+    assert (states == 1).all(), (
+        "job-conservation violation: some job is in "
+        f"{int((states != 1).sum())} states"
+    )
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_device_sim(sim, n_quanta: int, repeats: int = 1, warmup: bool = True,
+                   draws=None, telemetry: bool = False,
+                   app_telemetry: bool = False) -> OnlineStats:
+    """Run a :class:`repro_torch.online.sim.ClusterSim` configuration on its
+    device.
+
+    ``warmup`` runs the whole horizon once untimed; then ``repeats`` timed
+    runs, each bracketed by ``torch.cuda.synchronize()`` on a GPU, give
+    the median wall time per quantum in ``OnlineStats.policy_s`` (policy,
+    machine and bookkeeping together, spread over the horizon).  Every run
+    is the same (the draws are keyed per quantum).  ``draws`` defaults to
+    :class:`repro_torch.smt.scan_engine.TorchDraws` keyed from the sim's
+    seed.  Telemetry rings are not ported yet.
+    """
+    if telemetry or app_telemetry:
+        raise NotImplementedError(
+            "telemetry rings of the open system are not ported yet "
+            "(ROADMAP, open item 1)")
+    machine = sim.machine
+    spec: ScanPolicy = sim.policy
+    params = machine.params
+    device = sim.device
+    prep = _prepare_inputs(sim, n_quanta)
+    j = prep["j"]
+    arrive_q, pids = prep["arrive_q"], prep["pids"]
+    job_target, pool_rate = prep["job_target"], prep["pool_rate"]
+    fcfg = prep["fcfg"]
+    faulted = fcfg is not None
+    race = _build_race(spec, params, sim.capacity, n_quanta, prep["j_pad"],
+                       sim.admission, fcfg, device)
+    inputs = _commit(sim, prep, device)
+    draws = draws if draws is not None else TorchDraws(sim.seed, device)
+
+    out = None
+    if warmup:
+        out = race(inputs, draws)
+    walls = []
+    for _ in range(max(int(repeats), 1)):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = race(inputs, draws)
+        _sync(device)
+        walls.append(time.perf_counter() - t0)
+    per_quantum = float(np.median(walls)) / max(n_quanta, 1)
+
+    fetched = tuple(o.cpu().numpy() for o in out)
+    admit, finish, queue_depth, n_active, n_solo = fetched[:5]
+    retries = retry_at = evictions = requeues = None
+    if faulted:
+        retries, retry_at, evictions, requeues = fetched[5:9]
+        _check_conservation(prep, n_quanta, admit, finish, retries, retry_at)
+    solo_s = (job_target[:j] / pool_rate[pids] * params.quantum_s
+              if j else np.zeros(0))
+    name = spec.name or f"scan-{spec.kind}"
+    stats = OnlineStats.from_device_logs(
+        policy_name=name,
+        quantum_s=params.quantum_s,
+        quanta=n_quanta,
+        app_names=[sim.pool[int(pid)].name for pid in pids],
+        arrive_q=arrive_q,
+        admit_q=admit[:j],
+        finish_q=finish[:j],
+        targets=job_target[:j],
+        solo_s=solo_s,
+        queue_depth=queue_depth,
+        active=n_active,
+        policy_s=np.full(n_quanta, per_quantum),
+        solo_quanta=n_solo,
+        retries=retries[:j] if faulted else None,
+    )
+    if faulted:
+        _attach_fault_stats(stats, prep, retries, retry_at, evictions,
+                            requeues)
+    return stats
+
+
+def _attach_fault_stats(stats: OnlineStats, prep, retries, retry_at,
+                        evictions, requeues) -> None:
+    """Fill the fault timelines and scalars of a run's stats from the
+    fetched job logs and the host-side fault schedule."""
+    sched = prep["sched"]
+    j = prep["j"]
+    max_retries = prep["fcfg"][0]
+    stats.failures = sched.failures()
+    stats.recoveries = sched.recoveries()
+    stats.straggling = sched.straggling()
+    stats.evictions = np.asarray(evictions, np.float64)
+    stats.requeues = np.asarray(requeues, np.float64)
+    stats.n_dropped = int((retries[:j] > max_retries).sum()) if j else 0
+    stats.n_retry_waiting = int(
+        (retry_at[:j] < int(RETRY_NEVER)).sum()
+    ) if j else 0
+    # In flight = admitted but neither completed, dropped, nor waiting.
+    stats.n_in_flight = (stats.n_admitted - stats.n_completed
+                         - stats.n_dropped - stats.n_retry_waiting)

@@ -1,9 +1,10 @@
 """Ground-truth SMT machine model + PMU counter generation (numpy).
 
-The port's own copy of what the profiling campaign and the closed race need
-from ``repro.smt.machine``: the machine constants, the interference
-transform, the PMU counter model (scalar and batched), the array view of a
-workload's profiles, solo runs and the fixed-horizon result record.
+The port's own copy of what the profiling campaign, the closed race and the
+open system need from ``repro.smt.machine``: the machine constants, the
+interference transform, the PMU counter model (scalar and batched), the
+array view of a workload's profiles, solo runs, solo retire rates and §6.2
+targets, and the fixed-horizon result record.
 
 Ground-truth interference model (policies never see this).  For application
 *i* in phase ``p`` co-running with *j* in phase ``q``, the per-instruction
@@ -23,7 +24,7 @@ j = sum(c') / sum(c).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -274,14 +275,17 @@ class _AppState:
 
 
 class SMTMachine:
-    """The machine's solo runs: what the profiling campaign needs.
+    """The machine's solo runs and §6.2 targets: what the profiling
+    campaign and the open system's job targets need.
 
-    The closed race itself runs in :mod:`repro_torch.smt.scan_engine`.
+    The closed race runs in :mod:`repro_torch.smt.scan_engine`, the open
+    system in :mod:`repro_torch.online.device_sim`.
     """
 
     def __init__(self, params: MachineParams = MachineParams(), seed: int = 0):
         self.params = params
         self.rng = np.random.default_rng(seed)
+        self._solo_rate_cache: Dict[str, float] = {}
 
     def run_solo(
         self,
@@ -308,6 +312,22 @@ class SMTMachine:
             phases.append(st.phase_idx % len(profile.phases))
             self._advance_phase(st, rng)
         return samples, phases
+
+    def solo_retire_rate(self, profile: AppProfile) -> float:
+        """Average retired instructions per quantum in solo execution."""
+        if profile.name not in self._solo_rate_cache:
+            total, weight = 0.0, 0.0
+            for ph in profile.phases:
+                comps = _components_per_inst(ph)
+                rate = self.params.quantum_cycles / comps.sum() * profile.retire
+                total += rate * ph.duration
+                weight += ph.duration
+            self._solo_rate_cache[profile.name] = total / weight
+        return self._solo_rate_cache[profile.name]
+
+    def target_instructions(self, profile: AppProfile) -> float:
+        """§6.2: instructions committed in the solo reference period."""
+        return self.solo_retire_rate(profile) * self.params.solo_reference_quanta
 
     def _advance_phase(self, st: _AppState, rng: np.random.Generator) -> None:
         st.phase_left -= 1.0

@@ -96,15 +96,31 @@ class ScanPolicy:
                       by more than ``refine_eps``;
       ``"static"``  — the initial random pairing, pinned;
       ``"linux"``   — sticky pairing with occasional random migrations
-                      (probability ``p_migrate`` per quantum).
+                      (probability ``p_migrate`` per quantum);
+      ``"adjacent"`` — the open system's slot-ordered pairing of the
+                      active set (:mod:`repro_torch.online.device_sim`
+                      only).
+
+    matcher (``"synpa"`` only):
+      ``"refine"``  — in the closed race, the full re-match at the first
+                      counter quantum and the bounded 2-opt after it; in
+                      the open system, the churn repair of the carried
+                      pairing (``matching.device_repair_partner``) every
+                      quantum;
+      ``"full"``    — a fresh sort seed + 2-opt re-match every quantum.
+
+    ``name`` labels the policy in open-system stats; the closed race keys
+    its results by the ``policies`` dict instead.
     """
 
     kind: str = "synpa"
     method: Optional[isc.StackMethod] = None
     model: Optional[object] = None
+    matcher: str = "refine"
     refine_eps: float = 1e-2
     refine_rounds: int = 8
     p_migrate: float = 0.03
+    name: Optional[str] = None
 
 
 class _MachineState(NamedTuple):
@@ -146,23 +162,30 @@ class TorchDraws:
 
 
 def _corun_components_scan(dt: DeviceTables, ph, partner,
-                           params: MachineParams):
+                           params: MachineParams, aid=None):
     """Batched interference transform over all slots.
 
     ``partner[i] == i`` marks a solo slot: the interference terms are
     masked to zero, so its components are exactly the solo components.
+    ``aid`` (optional) maps slots to pool rows of ``dt``: the open
+    system's slot -> application indirection.  The closed race's slots are
+    pool rows (the default).
     """
     n = ph.shape[0]
     idx = torch.arange(n, device=ph.device)
     co = (partner != idx).to(torch.float32)
-    c = dt.comps[idx, ph]
+    if aid is None:
+        aid, aidp = idx, partner
+        mem, fetch = dt.mem_sens, dt.fetch_sens
+    else:
+        aidp = aid[partner]
+        mem, fetch = dt.mem_sens[aid], dt.fetch_sens[aid]
+    c = dt.comps[aid, ph]
     cpi = c.sum(-1)
     php = ph[partner]
-    u = dt.util[partner, php] * co
-    f = dt.x_fe[partner, php] * co
-    m = dt.x_be[partner, php] * co
-    mem = dt.mem_sens
-    fetch = dt.fetch_sens
+    u = dt.util[aidp, php] * co
+    f = dt.x_fe[aidp, php] * co
+    m = dt.x_be[aidp, php] * co
     return torch.stack(
         [
             c[:, 0] * (1.0 + params.a_disp * u),
@@ -291,7 +314,7 @@ def _make_policy_step(spec: ScanPolicy, k: int, n: int, p_pad: int,
         masks = torch.stack([solve, ~solve, torch.ones_like(solve),
                              torch.zeros_like(solve)])
         cost, st = fstep(counters, partner, st, masks, odd)
-        if first:
+        if first or spec.matcher == "full":
             mpart = matching.device_pairs_partner(
                 cost, valid_p, eps=spec.refine_eps, max_rounds=full_budget)
         else:

@@ -133,3 +133,49 @@ def test_pairs_partner_matches(n, clones):
     # SYNC_EVERY rounds, and only while budget is left.
     syncs = tmat.TWO_OPT_SYNCS - before
     assert syncs <= -(-int(rounds) // tmat.SYNC_EVERY)
+
+
+def _open_masks(n, seed):
+    """Validity masks of two consecutive open-system quanta over the same
+    cost matrix: a random subset of the ``n`` slots active, the idle
+    vertex (row ``n``) valid exactly when that subset is odd."""
+    rng = np.random.default_rng(seed)
+    p = fused_pad(n)
+    out = []
+    for _ in range(2):
+        valid = np.zeros(p, bool)
+        valid[:n] = rng.random(n) < 0.7
+        valid[n] = bool(valid[:n].sum() % 2)
+        out.append(valid)
+    return out
+
+
+@pytest.mark.parametrize("max_rounds", [0, 8, None])
+@pytest.mark.parametrize("clones", [False, True])
+@pytest.mark.parametrize("n", SIZES)
+def test_repair_partner_matches(n, clones, max_rounds):
+    """Churn repair of a pairing carried from the previous quantum's
+    membership: the repaired start (no 2-opt round), and with the bounded
+    and the full 2-opt, equal to the reference's partner vector exactly."""
+    cost, _ = _prepared(n, 9 * n + 3, clones)
+    if n % 2 == 0:
+        # The idle vertex's edges, for active subsets of odd size.
+        cost[n, :n] = jmat.IDLE_COST
+        cost[:n, n] = jmat.IDLE_COST
+    prev_valid, valid = _open_masks(n, 11 * n + clones)
+    part = _random_involution(cost.shape[0], prev_valid, 4 * n)
+    want = jmat.device_repair_partner(
+        jnp.asarray(cost), jnp.asarray(part, jnp.int32), jnp.asarray(valid),
+        eps=1e-2, max_rounds=max_rounds)
+    got = tmat.device_repair_partner(
+        torch.as_tensor(cost), torch.as_tensor(part), torch.as_tensor(valid),
+        eps=1e-2, max_rounds=max_rounds)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    g = got.numpy()
+    idx = np.arange(g.size)
+    assert (g[g] == idx).all() and (g != idx).all()
+    assert (valid[g] == valid).all()
+    # Pairs whose two ends stay valid are kept by the repair itself.
+    if max_rounds == 0:
+        kept = valid & valid[part] & (part != idx)
+        np.testing.assert_array_equal(g[kept], part[kept])

@@ -223,3 +223,26 @@ def test_fused_plain_matches_jax_chain(p, n_valid, idle):
     assert idle_e.any() == idle
     fixed = diag | idle_e
     np.testing.assert_allclose(got[~fixed], want[~fixed], **TOL)
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["flag_off", "flag_on"])
+@pytest.mark.parametrize("p,n_valid", [(16, 15), (264, 257), (1032, 1024)])
+def test_device_idle_flag_equals_host_idle_row(p, n_valid, flag):
+    """The idle vertex's flag as a one-element bool tensor: the output
+    equals, bit for bit, the call with ``idle_row = n_valid`` (flag on) or
+    ``-1`` (flag off)."""
+    st, coeffs, valid = _fused_inputs(p, n_valid, 13 * p + flag)
+    st_t, coeffs_t = torch.as_tensor(st[:n_valid]), torch.as_tensor(coeffs)
+    valid_t = torch.as_tensor(valid)
+    for shape in ((), (1,)):
+        got = ops.pair_costs(st_t, coeffs_t, n_categories=4, n_valid=n_valid,
+                             valid=valid_t, idle_row=n_valid, p=p,
+                             idle_flag=torch.full(shape, flag))
+        want = ops.pair_costs(st_t, coeffs_t, n_categories=4,
+                              n_valid=n_valid, valid=valid_t,
+                              idle_row=n_valid if flag else -1, p=p)
+        assert torch.equal(got, want)
+        # The idle row holds IDLE_COST toward the valid slots when the
+        # flag is on, DIAG when it is off.
+        edge = got[n_valid, :n_valid][valid_t]
+        assert bool((edge == (jmat.IDLE_COST if flag else DIAG)).all())

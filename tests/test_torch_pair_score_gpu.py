@@ -132,3 +132,49 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         kernel.pair_score_cuda(st, coeffs, 4, 12, valid.cpu())
     with pytest.raises(ValueError):
         kernel.pair_score_cuda(st[:8], coeffs, 4, 12, valid, p=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flag", [False, True], ids=["flag_off", "flag_on"])
+@pytest.mark.parametrize("p", PAIR_SCORE_SIZES)
+def test_idle_flag_kernel_matches_plain(cuda, p, flag):
+    """The idle vertex's flag read by the kernel from device memory: the
+    output equals, bit for bit, the kernel given ``idle_row = n_valid``
+    (flag on) or ``-1`` (flag off) on the host, and the plain version
+    with the same flag."""
+    st, n_valid, valid = _fused_case(p, 3 * p + flag, cuda)
+    _, coeffs = _inputs(4, p, cuda)
+    st = st[:n_valid].clone()
+    idle_row = n_valid if n_valid < p else -1
+    flag_t = torch.full((1,), flag, dtype=torch.bool, device=cuda)
+    before = kernel.LAUNCHES
+    got = kernel.pair_score_cuda(st, coeffs, 4, n_valid, valid, idle_row, p,
+                                 idle_flag=flag_t)
+    host = kernel.pair_score_cuda(st, coeffs, 4, n_valid, valid,
+                                  idle_row if flag else -1, p)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 2
+    assert torch.equal(got, host)
+    want = pair_costs_plain(st, coeffs, 4, n_valid, valid, idle_row, p,
+                            idle_flag=flag_t)
+    diag, idle_e = fixed_entries(p, n_valid, valid,
+                                 idle_row if flag else -1, cuda)
+    assert bool((got[diag] == DIAG).all()) and bool((want[diag] == DIAG).all())
+    assert bool((got[idle_e] == IDLE_COST).all())
+    assert bool((want[idle_e] == IDLE_COST).all())
+    fixed = diag | idle_e
+    torch.testing.assert_close(got[~fixed], want[~fixed], rtol=TOL, atol=TOL)
+
+
+@pytest.mark.gpu
+def test_wrapper_refuses_a_flag_it_cannot_read(cuda):
+    st, coeffs = _inputs(16, 0, cuda)
+    valid = torch.ones(12, dtype=torch.bool, device=cuda)
+    for bad, err in ((torch.ones(1, dtype=torch.bool), ValueError),
+                     (torch.ones(1, dtype=torch.uint8, device=cuda),
+                      TypeError),
+                     (torch.ones(2, dtype=torch.bool, device=cuda),
+                      TypeError)):
+        with pytest.raises(err):
+            kernel.pair_score_cuda(st, coeffs, 4, 12, valid, 12, 16,
+                                   idle_flag=bad)

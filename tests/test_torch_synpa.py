@@ -26,6 +26,7 @@ from repro.smt import machine as jmc  # noqa: E402
 from repro.smt import training as jtr  # noqa: E402
 from repro_torch.convert import category_model_from_numpy  # noqa: E402
 from repro_torch.core import isc as tisc  # noqa: E402
+from repro_torch.core import matching as tmat  # noqa: E402
 from repro_torch.core import regression as treg  # noqa: E402
 from repro_torch.core import synpa as tsyn  # noqa: E402
 from repro_torch.smt import machine as tmc  # noqa: E402
@@ -154,3 +155,22 @@ def test_fused_step_deterministic_on_simplex(models):
                          idle)
     assert torch.equal(cost_a, cost_b) and torch.equal(st_a, st_b)
     assert torch.allclose(st_a.sum(-1), torch.ones(16), atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [15, 33, 64])
+def test_fused_step_idle_flag_tensor_equals_host_bool(models, n):
+    """``idle`` as a 0-d bool tensor (the open system's parity, on the
+    device) gives the outputs of the host bool, bit for bit, whichever
+    value it holds."""
+    _, tm = models
+    counters, partner, prev_st, masks, idle = _inputs(
+        n, 2 * n, True, _INVALID.get(n))
+    tstep = tsyn.make_fused_step(tisc.SYNPA4_R_FEBE, tm)
+    args = (torch.as_tensor(counters), torch.as_tensor(partner),
+            torch.as_tensor(prev_st), torch.as_tensor(masks))
+    for flag in (idle, not idle):
+        want_cost, want_st = tstep(*args, flag)
+        got_cost, got_st = tstep(*args, torch.tensor(flag))
+        assert torch.equal(got_cost, want_cost)
+        assert torch.equal(got_st, want_st)
+        assert bool((got_cost[n, :n] == tmat.IDLE_COST).any()) == flag
