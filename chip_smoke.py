@@ -74,7 +74,44 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    an audit of the host syncs of one synergy run, a profiler breakdown of
    one fifo run, and ``synpa4`` must beat ``adjacent`` on mean slowdown;
 14. ``pair_score`` reading the idle vertex's flag from device memory,
-   timed beside the host-int variant at P = 1032, outputs identical.
+   timed beside the host-int variant at P = 1032, outputs identical;
+15. ``pair_score`` with a lane axis: 12 lanes at P = 1032 (5% of the
+   slots empty, the idle vertex live in every other lane) in one launch,
+   each lane's slab equal bit for bit to a one-lane launch and within
+   2e-5 of the plain version; one batched launch timed against 12 single
+   ones, beside the bound;
+16. the lane-batched open grid against the CPU at capacity 16, 40 quanta:
+   rho (0.85, 1.2) x (fifo, synergy) x 2 seeds, its synergy lanes alone
+   as a grid of one rule, then a faulted grid (the healthy lane and the
+   fault profiles of ``benchmarks/online_churn.py``'s fault grid, fifo);
+   every card lane equal to the same lane of the
+   CPU's batched run and to the card's ``run_device_sim`` of its scenario
+   (integer logs identical, finish quanta within 1e-4), conservation in
+   every faulted lane;
+17. the open grid's main path: ``record_batched_ab``'s grid of
+   ``benchmarks/online_churn.py`` at capacity 1024, 24 quanta, rho (0.85,
+   1.2) x (fifo, synergy) x seeds (11, 108, 205), 12 lanes, through
+   ``run_device_sim_batched`` with every kernel's launch count set to 0
+   just before and read just after (``pair_score`` once a quantum for all
+   lanes); the grid wall (median of 3 after a warm run) against the 12
+   scenarios run one after another through ``run_device_sim``, every
+   lane's integer logs equal to its sequential twin's; kernels a quantum
+   and device busy share under the profiler, beside one synergy lane's,
+   the synergy lanes alone as one grid (each held to its sequential twin)
+   and the draws alone, which break the grid's extra launches down into
+   draws, the heavy-ball fallback, fifo's rule and the synergy trips; the
+   host syncs of one grid run audited, none growing with the lanes; each lane's slowdowns, jobs
+   and queue depth; ``synpa4`` beats ``adjacent`` in the fifo lanes at
+   rho 1.2;
+18. the closed race over seed lanes: ``run_quanta_multi_batched`` at
+   N = 1024, 8 quanta, seeds (3, 4, 5), phase 6's policies; the seed-3
+   lane against phase 6 (rtol 1e-4), every lane against
+   ``run_quanta_scan`` of its seed on the card (rtol 1e-4), a one-lane
+   batch against phase 6 bit for bit; its wall per lane-quantum against
+   phase 6's per quantum; and the card's draws: the counter noise's
+   log-ratio moments over 200 quanta, the phase-length draws' Poisson
+   moments at the pool's means over 200 quanta, and a free-running static
+   race at N = 64 over 40 quanta against the CPU's (within 3%).
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -129,6 +166,15 @@ TARGET_SCALE = 0.25
 MEAN_SERVICE_SLOWDOWN = 1.3
 #: The open system's reference check (phase 12): 8 cores, 40 quanta.
 SMALL_CORES, SMALL_QUANTA, SMALL_SEED = 8, 40, 5
+#: The lane-batched open grid (phases 15-17): ``record_batched_ab`` in
+#: benchmarks/online_churn.py (rhos, admissions, seeds), at the open cell's
+#: capacity and horizon; phase 16 takes two of the seeds at capacity 16.
+GRID_RHOS = (0.85, 1.2)
+GRID_ADMISSIONS = ("fifo", "synergy")
+GRID_SEEDS = (11, 108, 205)
+GRID_LANES = len(GRID_RHOS) * len(GRID_ADMISSIONS) * len(GRID_SEEDS)
+#: The closed race over seed lanes (phase 18).
+RACE_SEEDS = (3, 4, 5)
 #: Flash attention's edge cases: (B, Sq, Skv, Hq, Hkv, D, causal, window,
 #: q scale).  Lengths that are multiples of no tile, Sq != Skv both ways,
 #: GQA groups 1, 4 and 8, windows whose first key falls mid-tile, q scaled
@@ -192,22 +238,30 @@ def _wall_ms(fn, reps: int = 3) -> float:
     return float(np.median(out))
 
 
-def _device_profile(fn):
+def _device_profile(fn, tries: int = 6):
     """Run ``fn`` once under ``torch.profiler``: (profiled wall seconds,
-    the CUDA kernels' key averages, a function giving one's device us)."""
+    the CUDA kernels' key averages, a function giving one's device us).
+    A window in which the profiler recorded no CUDA event at all lost its
+    events (every caller's ``fn`` launches kernels): it is profiled again,
+    up to ``tries`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels_seen = [e for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels_seen = [e for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA]
+        if kernels_seen:
+            break
+        _line("profile", "the profiler recorded no CUDA event in a window "
+              "that launched kernels; profiling it again")
 
     def dev_us(e):
         return (getattr(e, "self_device_time_total", 0.0)
@@ -414,12 +468,19 @@ def _cost_prep_layers(dev, model, st, valid_mask, idle: bool) -> None:
     reps = 20
     out = {}
     for label, fn in (("before", before), ("after", after)):
-        launches = ps_kernel.LAUNCHES
-        _, seen, dev_us = _device_profile(lambda: [fn() for _ in range(reps)])
-        if ps_kernel.LAUNCHES - launches != reps:
+        launched = []
+
+        def window():
+            launches = ps_kernel.LAUNCHES
+            for _ in range(reps):
+                fn()
+            launched.append(ps_kernel.LAUNCHES - launches)
+
+        _, seen, dev_us = _device_profile(window)
+        if launched[-1] != reps:
             raise AssertionError(f"Step 2 + cost prep {label}: "
-                                 f"{ps_kernel.LAUNCHES - launches} pair_score "
-                                 f"launches in {reps} calls")
+                                 f"{launched[-1]} pair_score launches in "
+                                 f"{reps} calls")
         walls = []
         for _ in range(9):
             torch.cuda.synchronize()
@@ -933,8 +994,8 @@ def mean_service_quanta(machine) -> float:
 
 
 def _fault_profile(FaultProfile, name: str, n_cores: int, quanta: int):
-    """The crash wave and the combined profile of
-    ``benchmarks/online_churn.py``'s fault grid at this size."""
+    """A profile of ``benchmarks/online_churn.py``'s fault grid at this
+    size."""
     k = max(1, n_cores // 8)
     down_q, up_q = quanta // 4, (3 * quanta) // 4
     crash = tuple((down_q + i % 3, i) for i in range(k))
@@ -943,6 +1004,11 @@ def _fault_profile(FaultProfile, name: str, n_cores: int, quanta: int):
                  for c in range(n_cores - max(1, n_cores // 8), n_cores))
     if name == "crash-wave":
         return FaultProfile(fail=crash, recover=heal)
+    if name == "mttf-churn":
+        return FaultProfile(mttf_quanta=3.0 * quanta,
+                            mttr_quanta=quanta / 6.0)
+    if name == "stragglers":
+        return FaultProfile(straggle=band)
     assert name == "combined", name
     return FaultProfile(fail=crash, recover=heal, straggle=band,
                         mttf_quanta=6.0 * quanta, mttr_quanta=quanta / 6.0)
@@ -1083,7 +1149,7 @@ def _open_main_path(dev, model, kernel_mods):
     from repro_torch.online import device_sim
     from repro_torch.smt.apps import pool_profiles
     from repro_torch.smt.machine import MachineParams, PhaseTables, SMTMachine
-    from repro_torch.smt.scan_engine import ScanPolicy, TorchDraws
+    from repro_torch.smt.scan_engine import ScanPolicy
 
     machine = SMTMachine(MachineParams(), seed=0)
     pool = pool_profiles()
@@ -1160,16 +1226,9 @@ def _open_main_path(dev, model, kernel_mods):
                              "slowdown")
 
     def race_of(name):
-        sim = sims[name]
-        prep = device_sim._prepare_inputs(sim, OPEN_QUANTA)
-        race = device_sim._build_race(sim.policy, machine.params,
-                                      sim.capacity, OPEN_QUANTA,
-                                      prep["j_pad"], sim.admission,
-                                      prep["fcfg"], dev)
-        inputs = device_sim._commit(sim, prep, dev)
-        draws = TorchDraws(OPEN_SEED, dev)
+        run = _grid_run([sims[name]], OPEN_QUANTA)
         torch.cuda.synchronize()
-        return lambda: race(inputs, draws)
+        return run
 
     # Host syncs of one synergy run: every one a counted exit.
     fn = race_of("synpa4 synergy")
@@ -1248,6 +1307,609 @@ def _pair_score_flag_times(dev, rng, model, ps_kernel):
           f"{int_ms * 1e3:.3f} us ({', '.join(f'{t * 1e3:.3f}' for t in times['int'])}); "
           "outputs identical for both flag values")
     return flag_ms, int_ms
+
+
+def _grid_run(sims, n_quanta: int, draws=None):
+    """A grid of open-system lanes, built and committed on the sims'
+    device: ``run()`` runs the whole horizon once, as
+    ``run_device_sim_batched`` does."""
+    from repro_torch.online import batch_sim, device_sim
+
+    preps, j_pad, syn_tables, draws = batch_sim._grid(sims, n_quanta, draws)
+    return device_sim._grid_race(sims, preps, n_quanta, j_pad, syn_tables,
+                                 draws)
+
+
+def _first_divergence(a, b) -> str:
+    """Where two open runs part ways: the first quantum whose queue depth,
+    active or solo count differs, with both values."""
+    import numpy as np
+
+    for name in ("queue_depth", "active", "solo_quanta", "admissions"):
+        x, y = getattr(a, name), getattr(b, name)
+        diff = np.flatnonzero(np.asarray(x) != np.asarray(y))
+        if diff.size:
+            q = int(diff[0])
+            return f"{name} first differs at quantum {q}: {x[q]!r} vs {y[q]!r}"
+    return "no per-quantum series differs"
+
+
+def _pair_score_lanes(dev, rng, model, ps_kernel):
+    """Phase 15: pair_score with a lane axis at the open grid's shape.
+    Returns the entry's extra keys."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.synpa import fused_pad
+    from repro_torch.kernels.pair_score.ref import (
+        DIAG, IDLE_COST, fixed_entries, pair_costs_plain)
+
+    lanes, p, n_valid = GRID_LANES, fused_pad(OPEN_CAPACITY), OPEN_CAPACITY
+    st = torch.as_tensor(rng.dirichlet(np.ones(4), size=(lanes, n_valid))
+                         .astype(np.float32), device=dev)
+    valid = torch.as_tensor(rng.random((lanes, n_valid)) > 0.05, device=dev)
+    flag = torch.as_tensor(np.arange(lanes) % 2 == 0, device=dev)
+    coeffs = model.coeffs.contiguous()
+
+    def batched():
+        return ps_kernel.pair_score_cuda(st, coeffs, 4, n_valid, valid,
+                                         n_valid, p, idle_flag=flag)
+
+    def singles():
+        return [ps_kernel.pair_score_cuda(st[k], coeffs, 4, n_valid,
+                                          valid[k], n_valid, p,
+                                          idle_flag=flag[k:k + 1])
+                for k in range(lanes)]
+
+    def plain():
+        return pair_costs_plain(st, coeffs, 4, n_valid, valid, n_valid, p,
+                                idle_flag=flag)
+
+    got, one, want = batched(), singles(), plain()
+    torch.cuda.synchronize()
+    if got.shape != (lanes, p, p):
+        raise AssertionError(f"pair_score lanes: shape {tuple(got.shape)}")
+    max_err = 0.0
+    for k in range(lanes):
+        if not torch.equal(got[k], one[k]):
+            raise AssertionError(f"pair_score lane {k}: the batched launch "
+                                 "differs from a one-lane launch")
+        diag, idle = fixed_entries(p, n_valid, valid[k],
+                                   n_valid if bool(flag[k]) else -1, dev)
+        for name, mask, value in (("DIAG", diag, DIAG),
+                                  ("IDLE_COST", idle, IDLE_COST)):
+            if not (bool((got[k][mask] == value).all())
+                    and bool((want[k][mask] == value).all())):
+                raise AssertionError(f"pair_score lane {k}: {name} entries "
+                                     "differ")
+        fixed = diag | idle
+        max_err = max(max_err, _close(got[k][~fixed], want[k][~fixed], TOL,
+                                      f"pair_score lane {k}"))
+    # Batched, singles, singles, batched: the two rounds show the noise.
+    times = {"batched": [], "singles": []}
+    for name in ("batched", "singles", "singles", "batched"):
+        times[name].append(_gpu_ms(batched if name == "batched" else singles,
+                                   iters=50))
+    batched_ms, singles_ms = (float(np.median(times[k]))
+                              for k in ("batched", "singles"))
+    plain_ms = _gpu_ms(plain, iters=3)
+    # Each input read once (the stacks, the valid masks, the flags, the
+    # coefficients), the outputs written once; the operations of the
+    # valid off-diagonal entries this run's masks leave.
+    nv = valid.sum(1).to(torch.float64)
+    n_bytes = lanes * (n_valid * 16 + n_valid + 1 + p * p * 4) + 16 * 4
+    n_ops = int((17 * 4 + 5) * float((nv * (nv - 1)).sum()))
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    _line("kernel", f"pair_score lanes L={lanes} P={p} n_valid={n_valid}, "
+          f"{int(valid.sum())} valid slots in all, the idle vertex live in "
+          f"{int(flag.sum())} lanes: every lane's slab equal to a one-lane "
+          f"launch bit for bit; max abs err against the plain version "
+          f"{max_err:.3e} (limit {TOL} abs/rel)")
+    _line("kernel", f"pair_score lanes: one launch {batched_ms * 1e3:.3f} us "
+          f"({', '.join(f'{t * 1e3:.3f}' for t in times['batched'])}); "
+          f"{lanes} one-lane launches {singles_ms * 1e3:.3f} us "
+          f"({', '.join(f'{t * 1e3:.3f}' for t in times['singles'])}), "
+          f"{singles_ms / lanes * 1e3:.3f} us a lane; plain "
+          f"{plain_ms * 1e3:.3f} us; bound {bound_ms * 1e3:.3f} us by "
+          f"{bound_by} ({n_bytes} B, {n_ops} f32 ops; "
+          f"{100 * bound_ms / batched_ms:.1f}% of the bound)")
+    return {"lanes": lanes, "batched_ms": batched_ms,
+            "batched_bound_ms": bound_ms, "batched_bound_by": bound_by,
+            "batched_plain_ms": plain_ms, "singles_ms": singles_ms,
+            "batched_max_abs_err": max_err}
+
+
+def _grid_sims(machine, pool, tables, spec, n_cores, quanta_of_rate,
+               seeds, synergy, device, rhos=GRID_RHOS,
+               admissions=GRID_ADMISSIONS):
+    """The scenario grid rho x admission x seed, as
+    ``record_batched_ab`` orders it: (sims, labels)."""
+    from repro_torch.online import ClusterSim, PoissonArrivals
+
+    sims, labels = [], []
+    for rho in rhos:
+        arrivals = PoissonArrivals(rate=rho * quanta_of_rate,
+                                   n_pool=len(pool))
+        for adm in admissions:
+            kw = (dict(admission="synergy", synergy=synergy)
+                  if adm == "synergy" else {})
+            for sd in seeds:
+                sims.append(ClusterSim(machine, pool, n_cores, spec, arrivals,
+                                       seed=sd, target_scale=TARGET_SCALE,
+                                       tables=tables, engine="scan",
+                                       device=device, **kw))
+                labels.append(f"rho={rho}/{adm}/seed={sd}")
+    return sims, labels
+
+
+def _open_grid_reference(dev, model) -> None:
+    """Phase 16: the lane-batched open grid at capacity 16, card against
+    the CPU and against the card's single runs, on the same draws."""
+    from repro_torch.core import isc
+    from repro_torch.online import (ClusterSim, FaultProfile, PoissonArrivals,
+                                    SynergyAdmission, run_device_sim_batched)
+    from repro_torch.online.device_sim import run_device_sim
+    from repro_torch.smt.apps import pool_profiles
+    from repro_torch.smt.machine import MachineParams, PhaseTables, SMTMachine
+    from repro_torch.smt.scan_engine import LaneDraws, ScanPolicy
+
+    machine = SMTMachine(MachineParams(), seed=0)
+    pool = pool_profiles()
+    tables = PhaseTables.build(pool)
+    q = SMALL_QUANTA
+    capacity = 2 * SMALL_CORES
+    syn = SynergyAdmission(SMTMachine(MachineParams(), seed=0), pool,
+                           isc.SYNPA4_R_FEBE, model, quanta=12)
+    specs = {str(where): ScanPolicy(kind="synpa", method=isc.SYNPA4_R_FEBE,
+                                    model=m, name="synpa4")
+             for where, m in ((dev, model), ("cpu", model.to("cpu")))}
+    per_rho = capacity / mean_service_quanta(machine)
+    seeds = GRID_SEEDS[:2]
+
+    def faulted(where):
+        """The healthy lane and the fault grid of online_churn.py at rho
+        1.0, fifo admission, the first seed."""
+        arrivals = PoissonArrivals(rate=per_rho, n_pool=len(pool))
+        out, labels = [], []
+        for name in ("none", "crash-wave", "mttf-churn", "stragglers",
+                     "combined"):
+            faults = (None if name == "none" else
+                      _fault_profile(FaultProfile, name, SMALL_CORES, q))
+            out.append(ClusterSim(machine, pool, SMALL_CORES,
+                                  specs[str(where)],
+                                  arrivals, seed=seeds[0],
+                                  target_scale=TARGET_SCALE, tables=tables,
+                                  engine="scan", device=where, faults=faults))
+            labels.append(f"faults={name}")
+        return out, labels
+
+    def rho_admission_seed(where):
+        return _grid_sims(machine, pool, tables, specs[str(where)],
+                          SMALL_CORES, per_rho, seeds, syn, where)
+
+    def synergy_only(where):
+        """Every lane admits by synergy: each stops at its own trips."""
+        return _grid_sims(machine, pool, tables, specs[str(where)],
+                          SMALL_CORES, per_rho, seeds, syn, where,
+                          admissions=("synergy",))
+
+    # A scenario's CPU lane and single run on the card, by label: the
+    # synergy-only grid's scenarios are the mixed grid's synergy lanes.
+    cpu_lanes, singles = {}, {}
+    for make in (rho_admission_seed, synergy_only, faulted):
+        card, labels = make(dev)
+        got = run_device_sim_batched(card, q, warmup=False, draws=LaneDraws(
+            [HostDraws(s.seed, dev) for s in card]))
+        if not all(lab in cpu_lanes for lab in labels):
+            cpu, _ = make("cpu")
+            cpu_lanes.update(zip(labels, run_device_sim_batched(
+                cpu, q, warmup=False,
+                draws=LaneDraws([HostDraws(s.seed, "cpu") for s in cpu]))))
+        for i, lab in enumerate(labels):
+            if lab not in singles:
+                singles[lab] = run_device_sim(
+                    card[i], q, warmup=False,
+                    draws=HostDraws(card[i].seed, dev))
+            alone, ref = singles[lab], cpu_lanes[lab]
+            what = f"open grid capacity {capacity} {lab}"
+            _same_open_run(got[i], ref, f"{what} card vs CPU")
+            _same_open_run(got[i], alone, f"{what} lane vs its single run")
+            bitwise = (_finish(got[i]) == _finish(alone)).all()
+            st = got[i]
+            faults = ""
+            if st.has_faults:
+                faults = (f"; {st.n_evicted} evictions, {st.n_requeued} "
+                          f"requeues, {st.n_dropped} dropped, "
+                          f"{st.n_retry_waiting} waiting: conservation holds")
+            _line("grid", f"{what}: {st.n_arrived} arrived, {st.n_completed} "
+                  f"completed, solo quanta {int(st.solo_quanta.sum())}; mean "
+                  f"slowdown card {st.mean_slowdown!r} CPU "
+                  f"{ref.mean_slowdown!r} single {alone.mean_slowdown!r}; "
+                  f"integer logs identical, finish quanta within 1e-4 (lane "
+                  f"and single run bit for bit: {bool(bitwise)}){faults}")
+            if st.n_completed == 0:
+                raise AssertionError(f"{what}: no job completed")
+
+
+def _finish(stats):
+    import numpy as np
+
+    return np.array([r.finish_q for r in sorted(stats.completed,
+                                                key=lambda r: r.job_id)])
+
+
+def _open_grid_main_path(dev, model, kernel_mods):
+    """Phase 17: the open grid at capacity 1024.  Returns the kernels'
+    launches of the grid's main-path run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import isc, matching, regression
+    from repro_torch.online import (SynergyAdmission, device_sim,
+                                    run_device_sim_batched)
+    from repro_torch.online.device_sim import run_device_sim
+    from repro_torch.smt.apps import pool_profiles
+    from repro_torch.smt.machine import MachineParams, PhaseTables, SMTMachine
+    from repro_torch.smt.scan_engine import LaneDraws, ScanPolicy, TorchDraws
+
+    machine = SMTMachine(MachineParams(), seed=0)
+    pool = pool_profiles()
+    tables = PhaseTables.build(pool)
+    n_cores = OPEN_CAPACITY // 2
+    q = OPEN_QUANTA
+    syn = SynergyAdmission(machine, pool, isc.SYNPA4_R_FEBE, model)
+    per_rho = OPEN_CAPACITY / mean_service_quanta(machine)
+    spec = ScanPolicy(kind="synpa", method=isc.SYNPA4_R_FEBE, model=model,
+                      matcher="refine", name="synpa4")
+    sims, labels = _grid_sims(machine, pool, tables, spec, n_cores, per_rho,
+                              GRID_SEEDS, syn, dev)
+    n_lanes = len(sims)
+    counters = ("NEED_FB_SYNCS", "TWO_OPT_SYNCS", "ADMIT_SYNCS")
+    owners = (regression, matching, device_sim)
+
+    def syncs_of(fn):
+        before = [getattr(m, c) for m, c in zip(owners, counters)]
+        out = fn()
+        return out, [getattr(m, c) - b for m, c, b in zip(owners, counters,
+                                                          before)]
+
+    # A warm run, then the main path with the counts at 0.
+    run_device_sim_batched(sims, q, warmup=False)
+    for mod in kernel_mods.values():
+        mod.LAUNCHES = 0
+    torch.cuda.synchronize()
+    fb_runs = regression.FALLBACK_RUNS
+    t0 = time.perf_counter()
+    grid, grid_syncs = syncs_of(
+        lambda: run_device_sim_batched(sims, q, warmup=False))
+    first_s = time.perf_counter() - t0
+    grid_fb = regression.FALLBACK_RUNS - fb_runs
+    launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+    if launches["pair_score"] != q or any(
+            v for n, v in launches.items() if n != "pair_score"):
+        raise AssertionError(f"open grid: launches {launches}, expected "
+                             f"pair_score {q} (once a quantum for all "
+                             f"{n_lanes} lanes) and no other")
+    timed = run_device_sim_batched(sims, q, repeats=3)
+    grid_ms = float(timed[0].policy_s[0]) * n_lanes * q * 1e3
+
+    # The same scenarios one after another, each alone.
+    seq, seq_syncs = [], None
+    torch.cuda.synchronize()
+    fb_runs = regression.FALLBACK_RUNS
+    t0 = time.perf_counter()
+    for sim in sims:
+        st, syncs = syncs_of(lambda: run_device_sim(sim, q, warmup=False))
+        seq.append(st)
+        if sim.admission == "synergy" and seq_syncs is None:
+            seq_syncs = syncs
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    seq_fb = regression.FALLBACK_RUNS - fb_runs
+    seq_run_ms = sum(float(st.policy_s[0]) * q for st in seq) * 1e3
+    _line("grid", f"capacity {OPEN_CAPACITY}, {q} quanta, {n_lanes} lanes "
+          f"(rho {GRID_RHOS} x {GRID_ADMISSIONS} x seeds {GRID_SEEDS}): grid "
+          f"wall {grid_ms:.3f} ms (median of 3 after a warm run), "
+          f"{grid_ms / (n_lanes * q):.3f} ms a lane-quantum, "
+          f"{grid_ms / q:.3f} ms a quantum; first main-path run "
+          f"{first_s:.3f} s; the {n_lanes} scenarios one after another "
+          f"through run_device_sim: {seq_ms:.3f} ms in all ({seq_run_ms:.3f} "
+          f"ms inside the runs), {seq_ms / (n_lanes * q):.3f} ms a "
+          f"lane-quantum; {seq_ms / grid_ms:.2f}x the grid; launches "
+          f"{launches}")
+    for i, lab in enumerate(labels):
+        a, b = grid[i], seq[i]
+        same = True
+        try:
+            _same_open_run(a, b, f"open grid {lab}")
+        except AssertionError as err:
+            same = False
+            _line("grid", f"{lab}: parts from its sequential twin: {err}; "
+                  f"{_first_divergence(a, b)}")
+        _line("grid", f"{lab}: {a.n_arrived} arrived, {a.n_completed} "
+              f"completed; slowdown mean {a.mean_slowdown!r} p95 "
+              f"{a.slowdown_percentile(95.0)!r}; mean queue depth "
+              f"{a.mean_queue_depth!r}; sequential twin mean "
+              f"{b.mean_slowdown!r}; integer logs equal to the twin's: "
+              f"{same}")
+        if not same:
+            raise AssertionError(f"open grid {lab}: the lane parts from its "
+                                 "sequential twin")
+        if not (a.n_completed > 0 and math.isfinite(a.mean_slowdown)):
+            raise AssertionError(f"open grid {lab}: no completed job")
+    grid_per_q = [s / q for s in grid_syncs]
+    _line("grid", f"host syncs of the grid's main-path run: fallback flag "
+          f"{grid_syncs[0]}, 2-opt flag {grid_syncs[1]}, admission count "
+          f"{grid_syncs[2]} ({grid_per_q[0]:g}, {grid_per_q[1]:g} and "
+          f"{grid_per_q[2]:g} a quantum); one synergy lane alone: "
+          f"{seq_syncs}; the heavy-ball fallback ran in {grid_fb} of the "
+          f"grid's {q} quanta (some lane flagged a row), and in {seq_fb} of "
+          f"the {n_lanes * q} quanta of the sequential runs")
+    if grid_syncs[0] != q or grid_syncs[2] != q or any(
+            g > s for g, s in zip(grid_syncs, seq_syncs)):
+        raise AssertionError(f"open grid: syncs {grid_syncs} against one "
+                             f"lane's {seq_syncs}")
+
+    # adjacent on the same grid: synpa4 must beat it in the fifo lanes at
+    # rho 1.2.
+    adj_spec = ScanPolicy(kind="adjacent", name="adjacent")
+    adj_sims, _ = _grid_sims(machine, pool, tables, adj_spec, n_cores,
+                             per_rho, GRID_SEEDS, syn, dev)
+    adj = run_device_sim_batched(adj_sims, q, warmup=False)
+    lanes = [i for i, lab in enumerate(labels)
+             if lab.startswith(f"rho={GRID_RHOS[-1]}/fifo/")]
+    ours = float(np.mean([grid[i].mean_slowdown for i in lanes]))
+    theirs = float(np.mean([adj[i].mean_slowdown for i in lanes]))
+    _line("grid", f"rho {GRID_RHOS[-1]} fifo lanes: synpa4 mean slowdown "
+          f"{ours!r} (lanes {[grid[i].mean_slowdown for i in lanes]}) "
+          f"against adjacent {theirs!r} (lanes "
+          f"{[adj[i].mean_slowdown for i in lanes]})")
+    if not ours < theirs:
+        raise AssertionError("open grid: synpa4 does not beat adjacent in "
+                             "the fifo lanes at rho 1.2")
+
+    def fb_profile(fn):
+        """``_device_profile`` of ``fn``, and the heavy-ball fallback runs
+        inside its profiled call."""
+        runs = []
+
+        def counted():
+            fb0 = regression.FALLBACK_RUNS
+            fn()
+            runs.append(regression.FALLBACK_RUNS - fb0)
+
+        return _device_profile(counted) + (runs[-1],)
+
+    # Where one grid run's time goes, and its host syncs audited.
+    run = _grid_run(sims, q)
+    run()
+    wall, seen, dev_us, fb_grid = fb_profile(run)
+    busy_ms = sum(dev_us(e) for e in seen) / 1e3
+    n_kernels = sum(e.count for e in seen)
+    _line("profile", f"one open grid run ({n_lanes} lanes, {q} quanta) "
+          f"under the profiler: wall {wall * 1e3:.3f} ms, {n_kernels} kernels "
+          f"({n_kernels / q:.1f} a quantum), device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / (wall * 1e3):.1f}% of the profiled wall)")
+    for e in sorted(seen, key=dev_us, reverse=True)[:10]:
+        _line("profile", f"{dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+              f"{e.key[:100]}")
+    # One synergy lane alone, the launch count the grid's is held to.
+    lab = f"rho={GRID_RHOS[-1]}/synergy/seed={GRID_SEEDS[0]}"
+    alone = _grid_run([sims[labels.index(lab)]], q)
+    alone()
+    wall1, seen1, dev_us1, fb_one = fb_profile(alone)
+    k1 = sum(e.count for e in seen1)
+    busy1 = sum(dev_us1(e) for e in seen1) / 1e3
+    _line("profile", f"one lane alone ({lab}) under the profiler: wall "
+          f"{wall1 * 1e3:.3f} ms, {k1 / q:.1f} kernels a quantum, device "
+          f"busy {busy1:.3f} ms ({100 * busy1 / (wall1 * 1e3):.1f}%); the "
+          f"grid launches {n_kernels / max(k1, 1):.2f}x its kernels for "
+          f"{n_lanes} lanes")
+    # The synergy lanes alone as one grid (one rule, no fifo), held to
+    # their sequential twins, and the draws alone: together they break
+    # the grid's extra launches down.
+    syn_idx = [i for i, lb in enumerate(labels) if "/synergy/" in lb]
+    syn_sims = [sims[i] for i in syn_idx]
+    for k, st in enumerate(run_device_sim_batched(syn_sims, q,
+                                                  warmup=False)):
+        _same_open_run(st, seq[syn_idx[k]],
+                       f"open synergy grid {labels[syn_idx[k]]}")
+    syn_run = _grid_run(syn_sims, q)    # warm: the checked run above
+    wall_s, seen_s, dev_us_s, fb_syn = fb_profile(syn_run)
+    k_syn = sum(e.count for e in seen_s)
+    busy_s = sum(dev_us_s(e) for e in seen_s) / 1e3
+
+    def draw_kernels(n: int) -> float:
+        """Kernels a quantum of ``n`` lanes' default draws alone."""
+        draws = LaneDraws([TorchDraws(s.seed, dev) for s in sims[:n]])
+        lam = torch.full((n, OPEN_CAPACITY), 20.0, device=dev)
+
+        def draw_all():
+            for qq in range(q):
+                draws.noise(qq, OPEN_CAPACITY)
+                draws.phase(qq, lam)
+
+        draw_all()
+        return sum(e.count for e in _device_profile(draw_all)[1]) / q
+
+    d_all, d_syn, d_one = (draw_kernels(n)
+                           for n in (n_lanes, len(syn_idx), 1))
+    # One heavy-ball fallback run (its launches do not depend on shape).
+    frac = torch.as_tensor(np.random.default_rng(0).dirichlet(
+        np.ones(4), (2, 512)).astype(np.float32), device=dev)
+
+    def one_fallback():
+        hb_i, hb_j = regression._hb_best_of(model, frac[0], frac[1], 80, 1.5)
+        regression.inverse_residual(model, frac[0], frac[1], hb_i, hb_j)
+
+    one_fallback()
+    k_fb = sum(e.count for e in _device_profile(one_fallback)[1])
+    adm = np.array([grid[i].admissions for i in syn_idx])
+    trips_grid = int(adm.max(0).sum())
+    trips_one = int(grid[labels.index(lab)].admissions.sum())
+    _line("profile", f"the {len(syn_idx)} synergy lanes alone as one grid: "
+          f"lanes equal their sequential twins; wall {wall_s * 1e3:.3f} ms, "
+          f"{k_syn / q:.1f} kernels a quantum, device busy {busy_s:.3f} ms "
+          f"({100 * busy_s / (wall_s * 1e3):.1f}%)")
+    _line("profile", f"draws alone, kernels a quantum: {d_all:.1f} for "
+          f"{n_lanes} lanes, {d_syn:.1f} for {len(syn_idx)}, {d_one:.1f} for "
+          f"one; synergy trips (the busiest synergy lane's admissions) "
+          f"{trips_grid} in the grid's {q} quanta against the lone lane's "
+          f"{trips_one}; heavy-ball fallback runs in the profiled runs: "
+          f"grid {fb_grid}, synergy grid {fb_syn}, lone lane {fb_one}, "
+          f"{k_fb} kernels each")
+    fifo_sel = ((n_kernels - k_syn) / q - (d_all - d_syn)
+                - (fb_grid - fb_syn) * k_fb / q)
+    trips = (k_syn - k1) / q - (d_syn - d_one) - (fb_syn - fb_one) * k_fb / q
+    _line("profile", f"the grid's {(n_kernels - k1) / q:.1f} kernels a "
+          f"quantum over one synergy lane's: draws of {n_lanes - 1} more "
+          f"lanes {d_all - d_one:.1f}; heavy-ball fallback "
+          f"{(fb_grid - fb_one) * k_fb / q:.1f}; fifo's rule and the "
+          f"per-lane selection {fifo_sel:.1f}; the synergy lanes' trips "
+          f"and trip mask {trips:.1f}")
+    counted0 = sum(getattr(m, c) for m, c in zip(owners, counters))
+    warned = _audited(run)
+    torch.cuda.synchronize()
+    counted = sum(getattr(m, c) for m, c in zip(owners, counters)) - counted0
+    _line("syncs", f"one open grid run ({n_lanes} lanes): {len(warned)} sync "
+          f"warnings, {counted} syncs counted (fallback, 2-opt and "
+          "admission flags)")
+    if len(warned) != counted:
+        for msg in sorted(set(warned)):
+            _line("syncs", msg[:200])
+        raise AssertionError("uncounted host syncs in the open grid")
+    return launches
+
+
+def _batched_race(dev, model, kernel_mods, race_res, race_per_q):
+    """Phase 18: the closed race over seed lanes, and the card's draws.
+    Returns the kernels' launches of the batched race's main-path run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import isc
+    from repro_torch.smt import scan_engine
+    from repro_torch.smt.machine import MachineParams, PhaseTables, SMTMachine
+    from repro_torch.smt.workloads import scaled_workload
+
+    machine = SMTMachine(MachineParams(), seed=0)
+    params = machine.params
+    profiles = scaled_workload(N_APPS, seed=N_APPS)
+    tables = PhaseTables.build(profiles)
+    policies = _policies(model, scan_engine, isc)
+    for mod in kernel_mods.values():
+        mod.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lanes = scan_engine.run_quanta_multi_batched(
+        machine, profiles, policies, RACE_SEEDS, n_quanta=N_QUANTA,
+        tables=tables, device=dev, repeats=0)
+    first_s = time.perf_counter() - t0
+    launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+    if launches["pair_score"] != N_QUANTA - 1 or any(
+            v for n, v in launches.items() if n != "pair_score"):
+        raise AssertionError(f"batched race: launches {launches}")
+
+    def close(a, b):
+        return abs(a - b) <= 1e-4 * abs(b)
+
+    singles = {RACE_SEEDS[0]: race_res}
+    for sd in RACE_SEEDS[1:]:
+        singles[sd] = scan_engine.run_quanta_scan(
+            params, profiles, policies, n_quanta=N_QUANTA, seed=sd,
+            device=dev, repeats=0)
+    for i, sd in enumerate(RACE_SEEDS):
+        for name in policies:
+            b, s = lanes[name][i], singles[sd][name]
+            ok = (close(b.mean_true_slowdown, s.mean_true_slowdown)
+                  and close(b.total_retired, s.total_retired))
+            _line("batched", f"N={N_APPS} seed {sd} {name}: lane mean true "
+                  f"slowdown {b.mean_true_slowdown!r}, run_quanta_scan "
+                  f"{s.mean_true_slowdown!r}; retired {b.total_retired!r} "
+                  f"and {s.total_retired!r}; bit for bit: "
+                  f"{b.total_retired == s.total_retired and b.mean_true_slowdown == s.mean_true_slowdown}")
+            if not ok:
+                raise AssertionError(f"batched race seed {sd} {name}: the "
+                                     "lane differs from run_quanta_scan past "
+                                     "rtol 1e-4")
+    one = scan_engine.run_quanta_multi_batched(
+        machine, profiles, policies, RACE_SEEDS[:1], n_quanta=N_QUANTA,
+        tables=tables, device=dev, repeats=0)
+    for name in policies:
+        b, s = one[name][0], race_res[name]
+        if not (b.total_retired == s.total_retired
+                and b.mean_true_slowdown == s.mean_true_slowdown
+                and np.array_equal(b.ipc, s.ipc)):
+            raise AssertionError(f"one-lane batched race {name} differs from "
+                                 "phase 6 bit for bit")
+    timed = scan_engine.run_quanta_multi_batched(
+        machine, profiles, policies, RACE_SEEDS, n_quanta=N_QUANTA,
+        tables=tables, device=dev, repeats=3)
+    per_lane_q = timed["synpa4"][0].machine_s_per_quantum
+    _line("batched", f"a one-lane batch equals phase 6 bit for bit; "
+          f"{len(RACE_SEEDS)} seed lanes: {per_lane_q * 1e3:.3f} ms a "
+          f"lane-quantum (median of 3 after a warm run; 3 policies), "
+          f"{per_lane_q * len(RACE_SEEDS) * 1e3:.3f} ms a quantum for all "
+          f"lanes, against phase 6's {race_per_q * 1e3:.3f} ms a quantum for "
+          f"one seed ({race_per_q / per_lane_q:.2f}x a lane); first run "
+          f"{first_s:.3f} s; launches {launches}")
+
+    # The card's draws against the reference's distributions: the counter
+    # noise's log-ratio moments, and a free-running static race against
+    # the CPU's.
+    n = 64
+    small = scaled_workload(n, seed=n)
+    dt = scan_engine.DeviceTables.build(PhaseTables.build(small), dev)
+    idx = torch.arange(n, device=dev)
+    ph = torch.zeros(n, dtype=torch.int64, device=dev)
+    comps = scan_engine._corun_components_scan(dt, ph, idx.flip(0), params)
+    cycles = float(np.float32(params.quantum_cycles))
+    base = scan_engine._pmu_counters_scan(comps, dt.omega, dt.retire, cycles,
+                                          params)
+    draws = scan_engine.TorchDraws(0, dev)
+    logs = torch.cat([torch.log(scan_engine._pmu_counters_scan(
+        comps, dt.omega, dt.retire, cycles, params, draws.noise(q, n))[:, 1:]
+        / base[:, 1:]).ravel() for q in range(200)]).double().cpu().numpy()
+    sigma = params.noise_sigma
+    mean_lim = 3 * sigma / math.sqrt(logs.size)
+    # The phase-length draws at the pool's means, standardised: Poisson
+    # draws have mean 0 and variance 1.
+    live = (torch.arange(dt.duration.shape[1], device=dev)
+            < dt.n_phases[:, None])
+    lam = dt.duration[live]
+    x = torch.stack([draws.phase(q, lam) for q in range(200)]).double()
+    z = ((x - lam.double()) / lam.double().sqrt()).cpu().numpy().ravel()
+    z_lim = 3 / math.sqrt(z.size)
+    integral = bool((x >= 0).all()) and bool((x == x.round()).all())
+    static = {"static": scan_engine.ScanPolicy(kind="static")}
+    card = scan_engine.run_quanta_scan(params, small, static, n_quanta=40,
+                                       seed=9, device=dev, repeats=0)["static"]
+    cpu = scan_engine.run_quanta_scan(params, small, static, n_quanta=40,
+                                      seed=9, device="cpu",
+                                      repeats=0)["static"]
+    _line("draws", f"TorchDraws on the card, counter noise over 200 quanta "
+          f"x {n} slots x 4 columns: log-ratio mean {logs.mean():.3e} (limit "
+          f"{mean_lim:.3e}), std {logs.std():.6f} against sigma {sigma} "
+          f"(limit 5%); phase draws over 200 quanta x {lam.numel()} phases: "
+          f"standardised mean {z.mean():.3e} (limit {z_lim:.3e}), variance "
+          f"{z.var():.6f} against 1 (limit 5%), whole and non-negative: "
+          f"{integral}; static race N={n}, 40 quanta, seed 9: card mean true "
+          f"slowdown {card.mean_true_slowdown!r}, IPC geomean "
+          f"{card.ipc_geomean!r}; CPU {cpu.mean_true_slowdown!r} and "
+          f"{cpu.ipc_geomean!r} (limit 3%)")
+    if not (abs(logs.mean()) < mean_lim
+            and abs(logs.std() - sigma) < 0.05 * sigma
+            and abs(z.mean()) < z_lim and abs(z.var() - 1.0) < 0.05
+            and integral
+            and abs(card.mean_true_slowdown - cpu.mean_true_slowdown)
+            < 0.03 * cpu.mean_true_slowdown
+            and abs(card.ipc_geomean - cpu.ipc_geomean)
+            < 0.03 * cpu.ipc_geomean):
+        raise AssertionError("the card's draws are not distribution-equal")
+    return launches
 
 
 def main() -> int:
@@ -1514,14 +2176,27 @@ def main() -> int:
     _open_reference(dev, model)
     open_launches = _open_main_path(dev, model, kernel_mods)
     flag_ms, int_ms = _pair_score_flag_times(dev, rng, model, ps_kernel)
-    kernels[0]["path_launches"] = {"race": launches["pair_score"],
-                                   "open": open_launches["pair_score"]}
-    kernels[0]["launches"] = launches["pair_score"] + open_launches["pair_score"]
+
+    # 15-18. The lane-batched grid and the seed-batched race.
+    lanes_entry = _pair_score_lanes(dev, rng, model, ps_kernel)
+    _open_grid_reference(dev, model)
+    grid_launches = _open_grid_main_path(dev, model, kernel_mods)
+    batched_launches = _batched_race(dev, model, kernel_mods, res, per_q)
+
+    kernels[0]["path_launches"] = {
+        "race": launches["pair_score"], "open": open_launches["pair_score"],
+        "grid": grid_launches["pair_score"],
+        "batched_race": batched_launches["pair_score"]}
+    kernels[0]["launches"] = sum(kernels[0]["path_launches"].values())
     kernels[0]["idle_flag_ms"] = flag_ms
     kernels[0]["idle_int_ms"] = int_ms
+    kernels[0].update(lanes_entry)
     for entry in kernels[1:]:
         entry["path_launches"] = {"serve": entry["launches"],
-                                  "open": open_launches[entry["name"]]}
+                                  "open": open_launches[entry["name"]],
+                                  "grid": grid_launches[entry["name"]],
+                                  "batched_race":
+                                      batched_launches[entry["name"]]}
     _line("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

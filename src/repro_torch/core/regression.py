@@ -357,9 +357,14 @@ def _gn_solve(model: CategoryModel, frac_i, frac_j, z0_i, z0_j,
     A row is *done* when its residual is below :data:`_GN_GOOD_ENOUGH` or
     it has plateaued (two consecutive steps improving by less than
     :data:`_GN_PLATEAU_RTOL` relative).  The loop runs ``n_steps`` times;
-    each iteration is applied only under the device-side scalar
+    each iteration is applied only under the device-side flag
     ``go = ~all(done)``, which reproduces the early-exit loop exactly with
     no host sync.
+
+    Rows lie along the second-to-last axis (``frac_i`` (..., m, C)); any
+    axes before it are lanes, each with its own ``go`` over its own rows,
+    as a batched early-exit loop freezes each lane: a lane's result does
+    not depend on the other lanes.
 
     Returns ``(st_i, st_j, res, not_converged)`` plus the per-row live-step
     count ``iters`` when ``diag=True``.
@@ -375,7 +380,8 @@ def _gn_solve(model: CategoryModel, frac_i, frac_j, z0_i, z0_j,
 
     for _ in range(n_steps):
         live = ~done_of(res, stall)
-        go = live.any()
+        go = live.any(-1, keepdim=True)     # one flag a lane
+        gv = go[..., None]
         z_i_n, z_j_n, rv_n, res_n, lam_n = step(z_i, z_j, rv, res, lam)
         small = (res - res_n) <= _GN_PLATEAU_RTOL * (res_n + 1e-12)
         accepted = res_n < res
@@ -387,9 +393,9 @@ def _gn_solve(model: CategoryModel, frac_i, frac_j, z0_i, z0_j,
             stalled, stall + 1, torch.where(accepted, 0, stall))
         ever_n = ever | accepted
         iters = torch.where(go, iters + live.to(torch.int32), iters)
-        z_i = torch.where(go, z_i_n, z_i)
-        z_j = torch.where(go, z_j_n, z_j)
-        rv = torch.where(go, rv_n, rv)
+        z_i = torch.where(gv, z_i_n, z_i)
+        z_j = torch.where(gv, z_j_n, z_j)
+        rv = torch.where(gv, rv_n, rv)
         res = torch.where(go, res_n, res)
         lam = torch.where(go, lam_n, lam)
         stall = torch.where(go, stall_n, stall)
@@ -408,7 +414,10 @@ def _gn_with_fallback(model: CategoryModel, frac_i, frac_j,
     The fallback runs at most once, and only when some row has not
     converged (or went non-finite): reading that flag is the one host
     sync of the solve, counted in :data:`NEED_FB_SYNCS`.  Per row, the
-    lower-residual solution wins.
+    lower-residual solution wins.  With lanes (``frac_i`` (L, m, C)) the
+    flag is read once for all of them; the fallback then runs over every
+    row, and a row takes its solution only where its own lane flagged a
+    row, so each lane gets what a solve of its rows alone would give.
 
     ``return_diag=True`` returns ``(st_i, st_j, InverseDiag)``.
     """
@@ -418,14 +427,15 @@ def _gn_with_fallback(model: CategoryModel, frac_i, frac_j,
     st_i, st_j, res, not_converged, iters = _gn_solve(
         model, frac_i, frac_j, _log_init(frac_i), _log_init(frac_j),
         gn_steps, diag=True)
-    need_fb = torch.any(not_converged | ~torch.isfinite(res))
+    need_fb = torch.any(not_converged | ~torch.isfinite(res), -1,
+                        keepdim=True)       # one flag a lane
     fallback = torch.zeros_like(not_converged)
     NEED_FB_SYNCS += 1
-    if bool(need_fb):
+    if bool(need_fb.any()):
         FALLBACK_RUNS += 1
         hb_i, hb_j = _hb_best_of(model, frac_i, frac_j, hb_steps, lr)
         res_hb = inverse_residual(model, frac_i, frac_j, hb_i, hb_j)
-        fallback = res_hb < res
+        fallback = (res_hb < res) & need_fb
         bx = fallback[..., None]
         st_i = torch.where(bx, hb_i, st_i)
         st_j = torch.where(bx, hb_j, st_j)
@@ -440,7 +450,9 @@ def pair_cost_matrix(model: CategoryModel, st_stacks, n_valid=None,
                      valid=None, idle_row: int = -1, p=None, idle_flag=None):
     """Dense all-pairs cost: cost[i, j] = slowdown(i|j) + slowdown(j|i).
 
-    st_stacks: (rows, 4) ST stacks.  Returns (p, p) (``p`` defaults to
+    st_stacks: (rows, 4) ST stacks, or (L, rows, 4) for L lanes at once
+    (then ``valid`` is (L, n_valid), ``idle_flag`` (L,) and the result
+    (L, p, p), from one kernel launch).  Returns (p, p) (``p`` defaults to
     ``rows``); the diagonal and, with ``n_valid``, every padding row/column
     carry the ``DIAG`` sentinel; ``valid`` and ``idle_row`` add the
     matcher's cost preparation, and ``idle_flag`` (a one-element bool

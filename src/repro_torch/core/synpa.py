@@ -64,6 +64,14 @@ def make_fused_step(
     estimate from that single solve.  The cost matrix, sentinels and idle
     edges included, comes from one ``pair_score`` call (one kernel launch
     on the card).
+
+    Lanes: with ``counters`` (L, n, 5), ``partner`` (L, n), ``prev_st``
+    (L, n, 4), ``masks`` (L, 4, n) and ``idle`` a host bool or an (L,)
+    bool tensor, the step runs L independent lanes at once and returns
+    ``cost (L, P, P)`` and ``st (L, n, 4)``: the pair ordering, the rank
+    gathers and the delivery run along each lane's last axis, the solve
+    takes every lane's pairs together (one fallback-flag read for all),
+    and the cost matrices come from one ``pair_score`` launch.
     """
     # The kernel's padding sentinel and the matcher's must be the same
     # value, or padded rows could out-compete real edges in the matching.
@@ -75,55 +83,69 @@ def make_fused_step(
     uniform = torch.as_tensor(isc.uniform_stack(method.n_categories),
                               device=model.coeffs.device)
 
-    def step(counters, partner, prev_st, masks, idle):
+    def rows_of(x, k):
+        """``x[l, k[l, r]]`` for every lane l and row r: (L, m, C)."""
+        return x.gather(-2, k[..., None].expand(k.shape + x.shape[-1:]))
+
+    def lanes_step(counters, partner, prev_st, masks, idle):
         device = counters.device
-        solve_mask, solo_mask, valid_mask, fresh_mask = (
-            masks[0], masks[1], masks[2], masks[3])
-        n = counters.shape[0]
+        solve_mask, solo_mask, valid_mask, fresh_mask = masks.unbind(-2)
+        n = counters.shape[-2]
         p = fused_pad(n)
         idx = torch.arange(n, device=device)
 
         # Step 0: measured SMT stack fractions of every slot.
-        raw = isc.raw_stack(counters[:, 0], counters[:, 1], counters[:, 2],
-                            counters[:, 3])
+        raw = isc.raw_stack(counters[..., 0], counters[..., 1],
+                            counters[..., 2], counters[..., 3])
         frac = isc.build_stack(raw, method)
 
         # Step 1: one inverse solve per co-running pair, by its lower-index
         # side; the pair-firsts go to the front in index order.
         first = solve_mask & (idx < partner)
-        order = torch.argsort((~first).to(torch.int32), stable=True)
-        take = order[: n // 2]
-        p_take = partner[take]
-        valid = first[take]
-        v1 = valid[:, None]
-        fi = torch.where(v1, frac[take], uniform)
-        fj = torch.where(v1, frac[p_take], uniform)
+        order = torch.argsort((~first).to(torch.int32), dim=-1, stable=True)
+        take = order[..., : n // 2]
+        p_take = partner.gather(-1, take)
+        valid = first.gather(-1, take)
+        v1 = valid[..., None]
+        fi = torch.where(v1, rows_of(frac, take), uniform)
+        fj = torch.where(v1, rows_of(frac, p_take), uniform)
         si, sj = regression._gn_with_fallback(
             model, fi, fj, gn_steps=gn_steps, hb_steps=hb_steps, lr=lr)
         # Deliver the pair solves by gather: slot s is the solving side of
         # pair rank[s] when first[s] (estimate si), and the partner side of
         # pair rank[partner[s]] when its partner solves (estimate sj).
-        rank = torch.cumsum(first.to(torch.int64), 0) - 1
+        rank = torch.cumsum(first.to(torch.int64), -1) - 1
         k1 = torch.clamp(rank, 0, n // 2 - 1)
-        k2 = torch.clamp(rank[partner], 0, n // 2 - 1)
-        sec = first[partner]
-        st = torch.where(first[:, None], si[k1],
-                         torch.where(sec[:, None], sj[k2], prev_st))
+        k2 = torch.clamp(rank.gather(-1, partner), 0, n // 2 - 1)
+        sec = first.gather(-1, partner)
+        st = torch.where(first[..., None], rows_of(si, k1),
+                         torch.where(sec[..., None], rows_of(sj, k2),
+                                     prev_st))
         # A slot that ran alone measured its ST stack directly.
-        st = torch.where(solo_mask[:, None], frac, st)
+        st = torch.where(solo_mask[..., None], frac, st)
         # Arrivals reset to the uniform placeholder.
-        st = torch.where(fresh_mask[:, None], uniform[None, :], st)
+        st = torch.where(fresh_mask[..., None], uniform, st)
 
         # Step 2 and the Step 3 prep in one call: all-pairs Eq. 4 scoring
-        # into the padded (P, P) matrix, inactive slots sentineled out, the
-        # idle vertex (row n) wired when ``idle``.
-        if isinstance(idle, torch.Tensor):   # the kernel reads the flag
-            idle_row, flag = n, idle.reshape(1)
+        # into the padded (P, P) matrices, inactive slots sentineled out,
+        # the idle vertex (row n) wired when ``idle``.
+        if isinstance(idle, torch.Tensor):   # the kernel reads the flags
+            idle_row, flag = n, idle.reshape(-1)
         else:
             idle_row, flag = (n if idle else -1), None
         cost = regression.pair_cost_matrix(
-            model, st, n_valid=n, valid=valid_mask, idle_row=idle_row, p=p,
-            idle_flag=flag)
+            model, st, n_valid=n, valid=valid_mask.contiguous(),
+            idle_row=idle_row, p=p, idle_flag=flag)
         return cost, st
+
+    def step(counters, partner, prev_st, masks, idle):
+        if counters.dim() == 3:
+            return lanes_step(counters, partner, prev_st, masks, idle)
+        # One lane: the same step on a lane axis of 1.
+        if isinstance(idle, torch.Tensor):
+            idle = idle.reshape(1)
+        cost, st = lanes_step(counters[None], partner[None], prev_st[None],
+                              masks[None], idle)
+        return cost[0], st[0]
 
     return step

@@ -36,6 +36,15 @@
 // cost(i, j), with the two terms of the final sum swapped), so each entry
 // is computed once for both triangles.
 //
+// Lanes.  A scenario grid scores all its lanes in one launch: blockIdx.y is
+// the lane, and each lane's stacks, validity, flag and (p, p) output sit at
+// a fixed stride from the first lane's.  Nothing else depends on the lane,
+// so a lane's output is bit for bit that of a one-lane launch on its
+// inputs.  A one-lane launch runs the instantiation without the lane
+// offsets: with them it took 6.092 us, without 5.531 us, and the kernel
+// before the lane axis 5.530 us, in turns in one run on an H100 80GB HBM3
+// at 700 W (experiments/pair_score_lanes/run.py).
+//
 // Design.  32 x 32 output tiles of the upper triangle, one block of 32 x 8
 // threads each (P = 1032: 561 blocks).  The block stages its 32 row and 32
 // column stacks, their validity and the 16 coefficients in shared memory;
@@ -72,6 +81,7 @@ struct Args {
   float* out;                    // (p, p)
   int p, n_valid, n_categories, idle_row;
   int tiles;                     // tiles along a side
+  int st_rows;                   // stack rows a lane (the lane stride of st)
 };
 
 // s_ij + s_ji for row stack vi and column stack vj.
@@ -112,6 +122,7 @@ __device__ __forceinline__ void tile_of(int b, int t, int& bi, int& bj) {
   bj = r + b - (r * t - r * (r - 1) / 2);
 }
 
+template <bool kLanes>
 __global__ void __launch_bounds__(kTile * kBlockRows)
 pair_score_kernel(const Args a) {
   __shared__ float4 st_i[kTile];
@@ -121,6 +132,15 @@ pair_score_kernel(const Args a) {
   __shared__ float cf[16];
   __shared__ float tile[kTile][kTile + 1];
   __shared__ bool idle_on;
+
+  // This block's lane: every pointer moves by its lane's stride.
+  const size_t lane = kLanes ? blockIdx.y : 0;
+  const float4* st = a.st + lane * a.st_rows;
+  const unsigned char* valid =
+      a.valid == nullptr ? nullptr : a.valid + lane * a.n_valid;
+  const unsigned char* idle_flag =
+      a.idle_flag == nullptr ? nullptr : a.idle_flag + lane;
+  float* out = a.out + lane * a.p * a.p;
 
   int bi, bj;
   tile_of(blockIdx.x, a.tiles, bi, bj);
@@ -136,8 +156,8 @@ pair_score_kernel(const Args a) {
     const int l = tid % kTile;
     const int v = (tid < kTile ? i0 : j0) + l;
     const bool in = v < a.n_valid;
-    const float4 x = in ? a.st[v] : make_float4(0.f, 0.f, 0.f, 0.f);
-    ok = in && (a.valid == nullptr || a.valid[v]);
+    const float4 x = in ? st[v] : make_float4(0.f, 0.f, 0.f, 0.f);
+    ok = in && (valid == nullptr || valid[v]);
     if (tid < kTile) {
       st_i[l] = x;
       ok_i[l] = ok;
@@ -148,7 +168,7 @@ pair_score_kernel(const Args a) {
   } else if (tid < 2 * kTile + 16) {
     cf[tid - 2 * kTile] = a.coeffs[tid - 2 * kTile];
   } else if (tid == 2 * kTile + 16) {
-    idle_on = a.idle_flag == nullptr || *a.idle_flag != 0;
+    idle_on = idle_flag == nullptr || *idle_flag != 0;
   }
   // The barrier publishes the flag with the staged stacks.  Costs only:
   // every vertex valid, off the diagonal, away from the idle vertex.
@@ -176,7 +196,7 @@ pair_score_kernel(const Args a) {
     } else {
       cost = pair_cost(st_i[li], vj, cf, a.n_categories);
     }
-    if (i < a.p && j < a.p) a.out[static_cast<size_t>(i) * a.p + j] = cost;
+    if (i < a.p && j < a.p) out[static_cast<size_t>(i) * a.p + j] = cost;
     tile[li][tx] = cost;
   }
   if (bi == bj) return;
@@ -187,23 +207,24 @@ pair_score_kernel(const Args a) {
   for (int k = 0; k < kRowsPerThread; ++k) {
     const int r = ty + k * kBlockRows;
     if (j0 + r < a.p && i < a.p) {
-      a.out[static_cast<size_t>(j0 + r) * a.p + i] = tile[tx][r];
+      out[static_cast<size_t>(j0 + r) * a.p + i] = tile[tx][r];
     }
   }
 }
 
 }  // namespace
 
-// st: (>= n_valid, 4) float32, 16-byte aligned; coeffs: (4, 4) float32
-// rows (alpha, beta, gamma, rho); valid: (n_valid,) bool or null;
-// idle_flag: one bool or null; out: (p, p) float32.  Launches on `stream`
-// and returns the cudaError_t of the launch (0 on success).
+// For each of `lanes` lanes: st: (st_rows >= n_valid, 4) float32, 16-byte
+// aligned; valid: (n_valid,) bool or null; idle_flag: one bool or null;
+// out: (p, p) float32; the lanes follow one another in each array.
+// coeffs: (4, 4) float32 rows (alpha, beta, gamma, rho), shared.  Launches
+// on `stream` and returns the cudaError_t of the launch (0 on success).
 extern "C" int pair_score_launch(const void* st, const void* coeffs,
                                  const void* valid, const void* idle_flag,
                                  void* out, int p, int n_valid,
-                                 int n_categories, int idle_row,
-                                 void* stream) {
-  if (p <= 0) return 0;
+                                 int n_categories, int idle_row, int lanes,
+                                 int st_rows, void* stream) {
+  if (p <= 0 || lanes <= 0) return 0;
   Args a;
   a.st = static_cast<const float4*>(st);
   a.coeffs = static_cast<const float*>(coeffs);
@@ -215,8 +236,14 @@ extern "C" int pair_score_launch(const void* st, const void* coeffs,
   a.n_categories = n_categories;
   a.idle_row = idle_row;
   a.tiles = (p + kTile - 1) / kTile;
-  const int blocks = a.tiles * (a.tiles + 1) / 2;
-  pair_score_kernel<<<blocks, dim3(kTile, kBlockRows), 0,
-                      static_cast<cudaStream_t>(stream)>>>(a);
+  a.st_rows = st_rows;
+  const dim3 grid(a.tiles * (a.tiles + 1) / 2, lanes);
+  const dim3 block(kTile, kBlockRows);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes == 1) {
+    pair_score_kernel<false><<<grid, block, 0, s>>>(a);
+  } else {
+    pair_score_kernel<true><<<grid, block, 0, s>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

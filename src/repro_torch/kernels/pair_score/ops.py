@@ -22,6 +22,8 @@ def pair_costs(st, coeffs, n_categories: int = 4, n_valid=None, valid=None,
     ``idle_flag`` (a one-element bool tensor on ``st``'s device) the idle
     vertex is ``idle_row`` only while the flag holds True (see
     :func:`repro_torch.kernels.pair_score.ref.pair_costs_plain`).
+    ``st`` (L, rows, 4) with ``valid`` (L, n_valid) and ``idle_flag`` (L,)
+    scores L lanes at once into (L, p, p): one launch on the card.
     """
     if st.device.type == "cuda":
         return kernel.pair_score_cuda(st, coeffs, n_categories, n_valid,

@@ -54,7 +54,18 @@ def pair_costs_plain(st, coeffs, n_categories: int = 4, n_valid=None,
     and (i, idle_row) carry ``IDLE_COST`` where the other side is valid;
     with ``idle_flag`` (a one-element bool tensor) only while it holds
     True, read as a tensor, never on the host.
+
+    Lanes: ``st`` (L, rows, C) with ``valid`` (L, n_valid) and
+    ``idle_flag`` (L,) gives (L, p, p), lane by lane: each slab is this
+    function of that lane's inputs.
     """
+    if st.dim() == 3:
+        return torch.stack([
+            pair_costs_plain(st[k], coeffs, n_categories, n_valid,
+                             None if valid is None else valid[k], idle_row,
+                             p, None if idle_flag is None
+                             else idle_flag.reshape(-1)[k:k + 1])
+            for k in range(st.shape[0])])
     rows = st.shape[0]
     p = rows if p is None else int(p)
     n_valid = min(rows, p) if n_valid is None else min(int(n_valid), p)

@@ -8,7 +8,11 @@ context, run to completion and depart, while SYNPA re-pairs every quantum.
 * :class:`PoissonArrivals` / :class:`TraceArrivals` /
   :class:`InitialBatch`      — traffic models (:func:`presample`
                                materialises any of them);
-* :class:`FaultProfile`      — seeded core failure/recovery and stragglers.
+* :class:`FaultProfile`      — seeded core failure/recovery and stragglers;
+* :func:`run_device_sim_batched` — a scenario grid (seeds, loads,
+                               admission rules, fault profiles) as one
+                               lane-batched run
+                               (:mod:`repro_torch.online.batch_sim`).
 """
 
 from repro_torch.online.admission import SynergyAdmission
@@ -24,6 +28,7 @@ from repro_torch.online.faults import (
     FaultProfile,
     FaultSchedule,
 )
+from repro_torch.online.batch_sim import run_device_sim_batched
 from repro_torch.online.sim import ClusterSim
 
 __all__ = [
@@ -37,4 +42,5 @@ __all__ = [
     "SynergyAdmission",
     "TraceArrivals",
     "presample",
+    "run_device_sim_batched",
 ]

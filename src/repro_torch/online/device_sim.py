@@ -55,6 +55,11 @@ Random draws are data, as in the closed race: ``draws.noise(q, c)`` and
 can feed the reference's own draws.  With the same draws the run is the
 reference's ``run_device_sim``: integer logs identical, finish quanta to
 float32.  The first synpa pairing is the repair of the identity carry.
+
+Every tensor of the loop carries a leading lane axis: a single run is a
+grid of one lane, and :func:`repro_torch.online.batch_sim.
+run_device_sim_batched` runs a grid of scenarios through the same loop,
+each quantum's operations launched once for all lanes.
 """
 
 from __future__ import annotations
@@ -72,6 +77,7 @@ from repro_torch.online.faults import RETRY_NEVER
 from repro_torch.smt.metrics import OnlineStats
 from repro_torch.smt.scan_engine import (
     DeviceTables,
+    LaneDraws,
     ScanPolicy,
     TorchDraws,
     _corun_components_scan,
@@ -89,63 +95,88 @@ ADMIT_SYNCS = 0
 
 
 class _OpenCarry(NamedTuple):
-    """The open system's state between quanta: context membership, queue
-    head and per-job logs.  Shapes depend only on (capacity, padded job
-    count).  Per-job logs that take masked scatters carry a sink element
-    at index ``j_pad``."""
+    """The open system's state between quanta, one row a lane: context
+    membership, queue head and per-job logs.  Shapes depend only on
+    (lanes, capacity, padded job count).  Per-job logs that take masked
+    scatters carry a sink element at index ``j_pad``."""
 
-    app_id: torch.Tensor        # (C,) int64  pool row per context (-1 = empty)
-    job_at: torch.Tensor        # (C,) int64  job id per context (-1)
-    phase_idx: torch.Tensor     # (C,) int64
-    phase_left: torch.Tensor    # (C,) f32
-    progress: torch.Tensor      # (C,) f32  retired instructions, current job
-    target: torch.Tensor        # (C,) f32  departure target (inf when empty)
-    head: torch.Tensor          # ()   int64 jobs admitted so far
-    counters: torch.Tensor      # (C, 5) f32 previous quantum's PMU rows
-    ran: torch.Tensor           # (C,) bool context executed last quantum
-    partner_prev: torch.Tensor  # (C,) int64 machine partner last quantum
-    mpart: torch.Tensor         # (P,) int64 matcher partner carry
-    st: torch.Tensor            # (C, 4) f32 ST estimates
-    admit_q: torch.Tensor       # (J,) int64 admission quantum per job (-1)
-    finish_q: torch.Tensor      # (J + 1,) f32 fractional finish quantum (inf)
+    app_id: torch.Tensor        # (L, C) int64  pool row per context (-1 = empty)
+    job_at: torch.Tensor        # (L, C) int64  job id per context (-1)
+    phase_idx: torch.Tensor     # (L, C) int64
+    phase_left: torch.Tensor    # (L, C) f32
+    progress: torch.Tensor      # (L, C) f32  retired instructions, current job
+    target: torch.Tensor        # (L, C) f32  departure target (inf when empty)
+    head: torch.Tensor          # (L, 1) int64 jobs admitted so far
+    counters: torch.Tensor      # (L, C, 5) f32 previous quantum's PMU rows
+    ran: torch.Tensor           # (L, C) bool context executed last quantum
+    partner_prev: torch.Tensor  # (L, C) int64 machine partner last quantum
+    mpart: torch.Tensor         # (L, P) int64 matcher partner carry
+    st: torch.Tensor            # (L, C, 4) f32 ST estimates
+    admit_q: torch.Tensor       # (L, J) int64 admission quantum per job (-1)
+    finish_q: torch.Tensor      # (L, J + 1) f32 fractional finish quantum
 
 
 class _FaultCarry(NamedTuple):
     """Per-job retry bookkeeping of a faulted run, each with a sink."""
 
-    retries: torch.Tensor       # (J + 1,) int64 evictions suffered so far
-    retry_at: torch.Tensor      # (J + 1,) int64 quantum eligible again
-    saved: torch.Tensor         # (J + 1,) f32  progress to restore
+    retries: torch.Tensor       # (L, J + 1) int64 evictions suffered so far
+    retry_at: torch.Tensor      # (L, J + 1) int64 quantum eligible again
+    saved: torch.Tensor         # (L, J + 1) f32  progress to restore
+
+
+class _LaneCfg(NamedTuple):
+    """Per-lane scenario knobs, carried as data: the admission rule and
+    the retry policy, which lanes of one grid may choose apart.  Each is
+    an (L, 1) tensor; a lane that is not faulted carries knobs that never
+    fire."""
+
+    is_syn: torch.Tensor        # bool   synergy admission
+    max_retries: torch.Tensor   # int64  retry cap
+    backoff: torch.Tensor       # int64  requeue backoff (quanta)
+    preserve: torch.Tensor      # bool   keep progress on eviction
 
 
 class _Inputs(NamedTuple):
-    """What a run ships to the device once, before its first quantum."""
+    """What a run ships to the device once, before its first quantum:
+    the shared tables and each lane's jobs, faults and knobs."""
 
     dt: DeviceTables
-    job_pool: torch.Tensor      # (J,) int64
-    job_arrive: torch.Tensor    # (J,) int64 (padding arrives never)
-    job_target: torch.Tensor    # (J,) f32
-    syn_cost: torch.Tensor      # (A, A) f32
+    job_pool: torch.Tensor      # (L, J) int64
+    job_arrive: torch.Tensor    # (L, J) int64 (padding arrives never)
+    job_target: torch.Tensor    # (L, J) f32
+    syn_cost: torch.Tensor      # (A, A) f32, shared
     syn_mean: torch.Tensor      # (A,) f32
     syn_stacks: torch.Tensor    # (A, 4) f32
-    fup: Optional[torch.Tensor]     # (Q, C) bool
-    fspeed: Optional[torch.Tensor]  # (Q, C) f32
+    cfg: _LaneCfg
+    fup: Optional[torch.Tensor]     # (Q, L, C) bool
+    fspeed: Optional[torch.Tensor]  # (Q, L, C) f32
 
 
 def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
-                   admission: str, faults_cfg, device):
+                   admission: str, faults: bool, device):
     """The per-quantum ``body(inp, state, draws, q) -> (state, outs)``, the
-    initial state ``carry0()`` and ``unpack(state, outs)``, which stacks
-    the per-quantum outputs and slices the logs to their jobs."""
-    faults = faults_cfg is not None
-    if faults:
-        max_retries, backoff, preserve = faults_cfg
+    initial state ``carry0(lanes)`` and ``unpack(state, outs)``, which
+    stacks the per-quantum outputs and slices the logs to their jobs.
+
+    Every tensor has a leading lane axis; a single run is one lane.
+    ``admission`` is ``"fifo"``, ``"synergy"`` or ``"lane"``: the last
+    computes both rules every quantum and selects one per lane by
+    ``cfg.is_syn``, with synergy's trip count the maximum over the
+    synergy lanes alone (the un-selected rule's values are dead).
+    With ``faults`` (any lane faulted) the fault path runs, its knobs
+    read from ``cfg``, and unfaulted lanes ride an
+    all-up schedule at unit speed (multiplying by exactly 1.0 changes no
+    value)."""
+    if admission not in ("fifo", "synergy", "lane"):
+        raise ValueError(f"unknown admission {admission!r}")
+    lane_mode = admission == "lane"
     c = capacity
     p = fused_pad(c)
     idx = torch.arange(c, device=device)
+    core_mate = idx ^ 1
     jobs_idx = torch.arange(j_pad, device=device)
     cycles = float(np.float32(params.quantum_cycles))
-    use_hints = spec.kind == "synpa" and admission == "synergy"
+    use_hints = spec.kind == "synpa" and admission != "fifo"
     if spec.kind == "synpa":
         if spec.method is None or spec.model is None:
             raise ValueError("synpa open system needs a stack method and a "
@@ -159,7 +190,7 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
         ncat = 4
     uniform = torch.as_tensor(isc.uniform_stack(ncat), device=device)
     full_budget = 4 * (p // 2)
-    pad_false = torch.zeros(p - c - 1, dtype=torch.bool, device=device)
+    pad_false = torch.zeros(1, p - c - 1, dtype=torch.bool, device=device)
 
     def clip_job(j):
         return torch.clamp(j, 0, j_pad - 1)
@@ -167,33 +198,37 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
     # ----------------------------------------------------------- admission
     def admit_fifo(app_id, job_at, free, head, tail, job_pool):
         """k-th dequeued job -> k-th lowest free context."""
-        n_admit = torch.minimum(tail - head, free.sum())
-        frank = torch.cumsum(free.to(torch.int64), 0) - 1
+        n_admit = torch.minimum(tail - head, free.sum(-1, keepdim=True))
+        frank = torch.cumsum(free.to(torch.int64), -1) - 1
         take = free & (frank < n_admit)
         jidx = torch.where(take, head + frank, j_pad)
-        pid = job_pool[clip_job(jidx)]
+        pid = job_pool.gather(-1, clip_job(jidx))
         return (torch.where(take, pid, app_id), torch.where(take, jidx, job_at),
                 take, head + n_admit)
 
     def admit_synergy(app_id, job_at, head, tail, inp):
         """FIFO dequeue order, predicted-best placement: each dequeued job
-        sees the residents the previous one placed.  The trip count is
-        read on the host once (counted in ``ADMIT_SYNCS``)."""
+        sees the residents the previous one placed.  A lane runs its own
+        count of trips; the loop runs the most any synergy lane needs,
+        read on the host once a quantum (counted in ``ADMIT_SYNCS``)."""
         global ADMIT_SYNCS
-        n_admit = torch.minimum(tail - head, (app_id < 0).sum())
+        n_admit = torch.minimum(tail - head, (app_id < 0).sum(-1, keepdim=True))
+        n_trip = (torch.where(inp.cfg.is_syn, n_admit, 0) if lane_mode
+                  else n_admit)
         ADMIT_SYNCS += 1
+        trips = int(n_trip.max() if n_trip.numel() > 1 else n_trip)
         job_at0 = job_at
-        for k in range(int(n_admit)):
-            # One-element index tensors: a 0-d one would be read on the
-            # host.
-            j = (head + k).reshape(1)
-            pid = inp.job_pool[clip_job(j)]
-            mate = app_id[idx ^ 1]
+        for k in range(trips):
+            j = head + k
+            pid = inp.job_pool.gather(-1, clip_job(j))
+            mate = app_id[..., core_mate]
             mcost = torch.where(mate >= 0,
                                 inp.syn_cost[pid, torch.clamp(mate, min=0)],
                                 inp.syn_mean[pid])
             cost_s = torch.where(app_id < 0, mcost, torch.inf)
-            put = idx == torch.argmin(cost_s)   # ties -> lowest slot
+            put = idx == torch.argmin(cost_s, -1, keepdim=True)  # ties: lowest
+            if n_trip.numel() > 1:   # a lane past its own trips places none
+                put = put & (k < n_trip)
             app_id = torch.where(put, pid, app_id)
             job_at = torch.where(put, j, job_at)
         return app_id, job_at, job_at != job_at0, head + n_admit
@@ -202,13 +237,14 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
     def adjacent_partner(active, n_active):
         """Slot-ordered pairing of the active set; odd leaves the highest
         active rank solo."""
-        arank = torch.cumsum(active.to(torch.int64), 0) - 1
-        slot_of_rank = torch.zeros(c + 1, dtype=torch.int64,
-                                   device=device).scatter(
-            0, torch.where(active, arank, c), idx)[:c]
+        arank = torch.cumsum(active.to(torch.int64), -1) - 1
+        slot_of_rank = torch.zeros(active.shape[:-1] + (c + 1,),
+                                   dtype=torch.int64, device=device).scatter(
+            -1, torch.where(active, arank, c), idx.expand(active.shape))
         mate = arank ^ 1
-        return torch.where(active & (mate < n_active),
-                           slot_of_rank[torch.clamp(mate, 0, c - 1)], idx)
+        return torch.where(
+            active & (mate < n_active),
+            slot_of_rank.gather(-1, torch.clamp(mate, 0, c - 1)), idx)
 
     # ------------------------------------------------ open machine quantum
     def open_quantum(dt, aid, active, phase_idx, phase_left, progress,
@@ -218,7 +254,8 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
         aid_safe = torch.clamp(aid, min=0)
         nph = dt.n_phases[aid_safe]
         ph = phase_idx % nph
-        partner_m = torch.where(active & active[partner], partner, idx)
+        partner_m = torch.where(active & active.gather(-1, partner), partner,
+                                idx)
         comps = _corun_components_scan(dt, ph, partner_m, params,
                                        aid=aid_safe)
         cpi = comps.sum(-1)
@@ -232,7 +269,7 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
         counters = _pmu_counters_scan(comps, dt.omega[aid_safe],
                                       dt.retire[aid_safe], cycles, params,
                                       draws.noise(q, c))
-        counters = torch.where(active[:, None], counters, 0.0)
+        counters = torch.where(active[..., None], counters, 0.0)
         # Phase advance for survivors only (departed jobs leave at quantum
         # end); draws are per (context, quantum), occupancy-blind.
         surv = active & ~done
@@ -250,9 +287,10 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
     def body(inp: _Inputs, state, draws, q: int):
         carry, fc = state
         dt = inp.dt
+        cfg = inp.cfg
         # 1. Arrivals: the queue tail is a masked count over the sorted
         # job array.
-        tail = (inp.job_arrive <= q).sum()
+        tail = (inp.job_arrive <= q).sum(-1, keepdim=True)
         app_id, job_at = carry.app_id, carry.job_at
         if faults:
             # 1b. Fault eviction: jobs on cores that are down this quantum
@@ -261,17 +299,15 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
             speedq = inp.fspeed[q]
             evict = (app_id >= 0) & ~upq
             ej = torch.where(evict, job_at, j_pad)
-            retries = fc.retries.index_add(0, ej, evict.to(torch.int64))
-            over = retries[ej] > max_retries
+            retries = fc.retries.scatter_add(-1, ej, evict.to(torch.int64))
+            over = retries.gather(-1, ej) > cfg.max_retries
             requeue_c = evict & ~over          # dropped past max_retries
             retry_at = fc.retry_at.scatter(
-                0, torch.where(requeue_c, ej, j_pad),
-                torch.full((c,), q + backoff, dtype=torch.int64,
-                           device=device))
-            saved_val = (carry.progress if preserve
-                         else torch.zeros(c, device=device))
-            saved = fc.saved.scatter(0, ej, saved_val)
-            n_evict = evict.sum()
+                -1, torch.where(requeue_c, ej, j_pad),
+                (q + cfg.backoff).expand(ej.shape))
+            saved_val = torch.where(cfg.preserve, carry.progress, 0.0)
+            saved = fc.saved.scatter(-1, ej, saved_val)
+            n_evict = evict.sum(-1)
             app_id = torch.where(evict, -1, app_id)
             job_at = torch.where(evict, -1, job_at)
 
@@ -279,40 +315,53 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
             # victim (ascending job id) re-enters on the r-th lowest free
             # up context.
             free = (app_id < 0) & upq
-            elig = retry_at[:j_pad] <= q
-            n_take = torch.minimum(elig.sum(), free.sum())
-            erank = torch.cumsum(elig.to(torch.int64), 0) - 1
+            elig = retry_at[..., :j_pad] <= q
+            n_take = torch.minimum(elig.sum(-1, keepdim=True),
+                                   free.sum(-1, keepdim=True))
+            erank = torch.cumsum(elig.to(torch.int64), -1) - 1
             take_j = elig & (erank < n_take)
-            job_of_rank = torch.full((c + 1,), j_pad, dtype=torch.int64,
-                                     device=device).scatter(
-                0, torch.where(take_j, erank, c), jobs_idx)[:c]
-            frank = torch.cumsum(free.to(torch.int64), 0) - 1
+            job_of_rank = torch.full(app_id.shape[:-1] + (c + 1,), j_pad,
+                                     dtype=torch.int64, device=device).scatter(
+                -1, torch.where(take_j, erank, c), jobs_idx.expand(elig.shape))
+            frank = torch.cumsum(free.to(torch.int64), -1) - 1
             rtake = free & (frank < n_take)
-            jr = torch.where(rtake,
-                             job_of_rank[torch.clamp(frank, 0, c - 1)], j_pad)
-            app_id = torch.where(rtake, inp.job_pool[clip_job(jr)], app_id)
+            jr = torch.where(
+                rtake, job_of_rank.gather(-1, torch.clamp(frank, 0, c - 1)),
+                j_pad)
+            app_id = torch.where(rtake, inp.job_pool.gather(-1, clip_job(jr)),
+                                 app_id)
             job_at = torch.where(rtake, jr, job_at)
             retry_at = retry_at.scatter(
-                0, torch.where(rtake, jr, j_pad),
-                torch.full((c,), int(RETRY_NEVER), dtype=torch.int64,
+                -1, torch.where(rtake, jr, j_pad),
+                torch.full(jr.shape, int(RETRY_NEVER), dtype=torch.int64,
                            device=device))
-            n_requeue = rtake.sum()
+            n_requeue = rtake.sum(-1)
             free = free & ~rtake
         else:
             free = app_id < 0
 
         # 2. Admission into free contexts (FIFO dequeue order either way).
-        if admission == "synergy":
-            app_id, job_at, took_f, head = admit_synergy(
+        if admission != "fifo":
+            s_app, s_job, s_took, s_head = admit_synergy(
                 app_id, job_at, carry.head, tail, inp)
-        else:
-            app_id, job_at, took_f, head = admit_fifo(
+        if admission != "synergy":
+            f_app, f_job, f_took, f_head = admit_fifo(
                 app_id, job_at, free, carry.head, tail, inp.job_pool)
+        if admission == "synergy":
+            app_id, job_at, took_f, head = s_app, s_job, s_took, s_head
+        elif admission == "fifo":
+            app_id, job_at, took_f, head = f_app, f_job, f_took, f_head
+        else:
+            app_id = torch.where(cfg.is_syn, s_app, f_app)
+            job_at = torch.where(cfg.is_syn, s_job, f_job)
+            took_f = torch.where(cfg.is_syn, s_took, f_took)
+            head = torch.where(cfg.is_syn, s_head, f_head)
         # ``took``: every newly placed context (fresh and retry); ``took_f``
         # the fresh ones, which alone move the queue head and admit log.
         took = (took_f | rtake) if faults else took_f
         jidx = clip_job(torch.where(took, job_at, j_pad))
-        target = torch.where(took, inp.job_target[jidx], carry.target)
+        target = torch.where(took, inp.job_target.gather(-1, jidx),
+                             carry.target)
         phase_idx = torch.where(took, 0, carry.phase_idx)
         phase_left = torch.where(
             took, dt.duration[torch.clamp(app_id, min=0), 0],
@@ -320,7 +369,7 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
         if faults:
             # Re-admissions restart at phase 0 with their saved progress.
             progress = torch.where(
-                rtake, saved[jidx],
+                rtake, saved.gather(-1, jidx),
                 torch.where(took_f, 0.0, carry.progress))
         else:
             progress = torch.where(took, 0.0, carry.progress)
@@ -329,12 +378,14 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
                               q, carry.admit_q)
         st = carry.st
         if use_hints:
-            # A newcomer's estimate is its profiled solo stack.
-            st = torch.where(took[:, None],
+            # A newcomer's estimate is its profiled solo stack (synergy
+            # lanes only).
+            hint = (took & cfg.is_syn) if lane_mode else took
+            st = torch.where(hint[..., None],
                              inp.syn_stacks[torch.clamp(app_id, min=0)], st)
 
         active = app_id >= 0
-        n_active = active.sum()
+        n_active = active.sum(-1, keepdim=True)
         odd = (n_active % 2) == 1
         queue_depth = tail - head
 
@@ -346,11 +397,16 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
         else:
             solve = carry.ran & (carry.partner_prev != idx)
             solo_m = carry.ran & (carry.partner_prev == idx)
-            fresh = torch.zeros_like(took) if use_hints else took
-            masks = torch.stack([solve, solo_m, active, fresh])
+            # Hinted (synergy) lanes skip the fresh reset.
+            if lane_mode:
+                fresh = took & ~cfg.is_syn
+            else:
+                fresh = torch.zeros_like(took) if use_hints else took
+            masks = torch.stack([solve, solo_m, active, fresh], dim=-2)
             cost, st = fstep(carry.counters, carry.partner_prev, st, masks,
-                             odd)
-            valid_p = torch.cat([active, odd.reshape(1), pad_false])
+                             odd.reshape(-1))
+            valid_p = torch.cat([active, odd,
+                                 pad_false.expand(active.shape[0], -1)], -1)
             if spec.matcher == "full":
                 mpart = matching.device_pairs_partner(
                     cost, valid_p, eps=spec.refine_eps,
@@ -366,8 +422,8 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
             dt, app_id, active, phase_idx, phase_left, progress, target,
             partner, draws, q, speed=speedq if faults else None)
         finish_q = carry.finish_q.scatter(
-            0, torch.where(done, job_at, j_pad), q + frac)
-        n_solo = (active & (partner == idx)).sum()
+            -1, torch.where(done, job_at, j_pad), q + frac)
+        n_solo = (active & (partner == idx)).sum(-1)
         new = _OpenCarry(
             app_id=torch.where(done, -1, app_id),
             job_at=torch.where(done, -1, job_at),
@@ -384,44 +440,46 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
             admit_q=admit_q,
             finish_q=finish_q,
         )
-        outs = (queue_depth, n_active, n_solo)
+        outs = (queue_depth[..., 0], n_active[..., 0], n_solo)
         if faults:
             outs = outs + (n_evict, n_requeue)
             fc = _FaultCarry(retries=retries, retry_at=retry_at, saved=saved)
         return (new, fc), outs
 
-    def carry0():
+    def carry0(lanes: int):
+        def full(shape, value, dtype=torch.float32):
+            return torch.full((lanes,) + shape, value, dtype=dtype,
+                              device=device)
+
         ocarry = _OpenCarry(
-            app_id=torch.full((c,), -1, dtype=torch.int64, device=device),
-            job_at=torch.full((c,), -1, dtype=torch.int64, device=device),
-            phase_idx=torch.zeros(c, dtype=torch.int64, device=device),
-            phase_left=torch.zeros(c, device=device),
-            progress=torch.zeros(c, device=device),
-            target=torch.full((c,), torch.inf, device=device),
-            head=torch.zeros((), dtype=torch.int64, device=device),
-            counters=torch.zeros((c, 5), device=device),
-            ran=torch.zeros(c, dtype=torch.bool, device=device),
-            partner_prev=idx,
-            mpart=torch.arange(p, device=device),
-            st=uniform[None, :].repeat(c, 1),
-            admit_q=torch.full((j_pad,), -1, dtype=torch.int64,
-                               device=device),
-            finish_q=torch.full((j_pad + 1,), torch.inf, device=device),
+            app_id=full((c,), -1, torch.int64),
+            job_at=full((c,), -1, torch.int64),
+            phase_idx=full((c,), 0, torch.int64),
+            phase_left=full((c,), 0.0),
+            progress=full((c,), 0.0),
+            target=full((c,), torch.inf),
+            head=full((1,), 0, torch.int64),
+            counters=full((c, 5), 0.0),
+            ran=full((c,), False, torch.bool),
+            partner_prev=idx.expand(lanes, c).clone(),
+            mpart=torch.arange(p, device=device).expand(lanes, p).clone(),
+            st=uniform.expand(lanes, c, uniform.shape[-1]).clone(),
+            admit_q=full((j_pad,), -1, torch.int64),
+            finish_q=full((j_pad + 1,), torch.inf),
         )
         fc = _FaultCarry(
-            retries=torch.zeros(j_pad + 1, dtype=torch.int64, device=device),
-            retry_at=torch.full((j_pad + 1,), int(RETRY_NEVER),
-                                dtype=torch.int64, device=device),
-            saved=torch.zeros(j_pad + 1, device=device),
+            retries=full((j_pad + 1,), 0, torch.int64),
+            retry_at=full((j_pad + 1,), int(RETRY_NEVER), torch.int64),
+            saved=full((j_pad + 1,), 0.0),
         ) if faults else None
         return ocarry, fc
 
     def unpack(state, outs):
         ocarry, fc = state
-        cols = [torch.stack(col) for col in zip(*outs)]
-        res = (ocarry.admit_q, ocarry.finish_q[:j_pad]) + tuple(cols[:3])
+        cols = [torch.stack(col, -1) for col in zip(*outs)]
+        res = (ocarry.admit_q, ocarry.finish_q[..., :j_pad]) + tuple(cols[:3])
         if faults:
-            res = res + (fc.retries[:j_pad], fc.retry_at[:j_pad]) \
+            res = res + (fc.retries[..., :j_pad], fc.retry_at[..., :j_pad]) \
                 + tuple(cols[3:5])
         return res
 
@@ -429,17 +487,18 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
 
 
 def _build_race(spec: ScanPolicy, params, capacity: int, n_quanta: int,
-                j_pad: int, admission: str, faults_cfg=None, device=None):
-    """One open-system run: ``race(inputs, draws)`` -> ``(admit_q (J,),
-    finish_q (J,), queue_depth (Q,), n_active (Q,), n_solo (Q,))`` on the
-    device, and with ``faults_cfg`` (``(max_retries, backoff_quanta,
-    preserve_progress)``) also ``retries (J,), retry_at (J,), evictions
-    (Q,), requeues (Q,)``."""
+                j_pad: int, admission: str, faults=False, device=None):
+    """One open-system run over a grid of lanes: ``race(inputs, draws)``
+    -> ``(admit_q (L, J), finish_q (L, J), queue_depth (L, Q), n_active
+    (L, Q), n_solo (L, Q))`` on the device, and with ``faults``
+    also ``retries (L, J), retry_at (L, J), evictions (L, Q), requeues
+    (L, Q)``.  ``draws`` gives each quantum's numbers for all lanes (a
+    :class:`repro_torch.smt.scan_engine.LaneDraws`)."""
     body, carry0, unpack = _make_open_ops(spec, params, capacity, j_pad,
-                                          admission, faults_cfg, device)
+                                          admission, faults, device)
 
     def race(inputs: _Inputs, draws):
-        state = carry0()
+        state = carry0(inputs.job_pool.shape[0])
         outs = []
         for q in range(n_quanta):
             state, out = body(inputs, state, draws, q)
@@ -498,22 +557,53 @@ def _prepare_inputs(sim, n_quanta: int):
     )
 
 
-def _commit(sim, prep, device) -> _Inputs:
-    """Ship a run's inputs to the device, once."""
+def _repad(arr: np.ndarray, j_pad: int, fill) -> np.ndarray:
+    out = np.full(j_pad, fill, arr.dtype)
+    out[: arr.size] = arr
+    return out
+
+
+def _commit(sims, preps, j_pad: int, n_quanta: int, syn_tables,
+            device) -> _Inputs:
+    """Ship a grid's inputs to the device, once: each lane's job arrays
+    re-padded to ``j_pad`` (padding jobs arrive never and have an infinite
+    target, so a wider pad changes no trajectory), its fault schedule
+    (all up at unit speed for an unfaulted lane of a faulted grid) and its
+    knobs; ``syn_tables`` ``(cost, mean, stacks)`` are shared."""
     def t(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
-    faulted = prep["fcfg"] is not None
+    c = sims[0].capacity
+    faulted = [prep["fcfg"] is not None for prep in preps]
+    fup = fspeed = None
+    if any(faulted):
+        fup = t(np.stack([prep["fup"] if f else np.ones((n_quanta, c), bool)
+                          for prep, f in zip(preps, faulted)], 1), torch.bool)
+        fspeed = t(np.stack([
+            prep["fspeed"] if f else np.ones((n_quanta, c), np.float32)
+            for prep, f in zip(preps, faulted)], 1), torch.float32)
+    knobs = np.array([prep["fcfg"][:3] if f else (0, 0, True)
+                      for prep, f in zip(preps, faulted)], np.int64)
+    cfg = _LaneCfg(
+        is_syn=t([[sim.admission == "synergy"] for sim in sims], torch.bool),
+        max_retries=t(knobs[:, :1], torch.int64),
+        backoff=t(knobs[:, 1:2], torch.int64),
+        preserve=t(knobs[:, 2:3], torch.bool),
+    )
     return _Inputs(
-        dt=DeviceTables.build(sim.tables, device),
-        job_pool=t(prep["job_pool"], torch.int64),
-        job_arrive=t(prep["job_arrive"], torch.int64),
-        job_target=t(prep["job_target"], torch.float32),
-        syn_cost=t(prep["syn_cost"], torch.float32),
-        syn_mean=t(prep["syn_mean"], torch.float32),
-        syn_stacks=t(prep["syn_stacks"], torch.float32),
-        fup=t(prep["fup"], torch.bool) if faulted else None,
-        fspeed=t(prep["fspeed"], torch.float32) if faulted else None,
+        dt=DeviceTables.build(sims[0].tables, device),
+        job_pool=t(np.stack([_repad(prep["job_pool"], j_pad, 0)
+                             for prep in preps]), torch.int64),
+        job_arrive=t(np.stack([_repad(prep["job_arrive"], j_pad, n_quanta)
+                               for prep in preps]), torch.int64),
+        job_target=t(np.stack([_repad(prep["job_target"], j_pad, np.inf)
+                               for prep in preps]), torch.float32),
+        syn_cost=t(syn_tables[0], torch.float32),
+        syn_mean=t(syn_tables[1], torch.float32),
+        syn_stacks=t(syn_tables[2], torch.float32),
+        cfg=cfg,
+        fup=fup,
+        fspeed=fspeed,
     )
 
 
@@ -548,60 +638,63 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_device_sim(sim, n_quanta: int, repeats: int = 1, warmup: bool = True,
-                   draws=None, telemetry: bool = False,
-                   app_telemetry: bool = False) -> OnlineStats:
-    """Run a :class:`repro_torch.online.sim.ClusterSim` configuration on its
-    device.
+def _lane_mode(sims) -> str:
+    """The admission mode of a grid: one rule for all lanes, or
+    ``"lane"`` when its lanes differ."""
+    rules = {sim.admission for sim in sims}
+    return rules.pop() if len(rules) == 1 else "lane"
 
-    ``warmup`` runs the whole horizon once untimed; then ``repeats`` timed
-    runs, each bracketed by ``torch.cuda.synchronize()`` on a GPU, give
-    the median wall time per quantum in ``OnlineStats.policy_s`` (policy,
-    machine and bookkeeping together, spread over the horizon).  Every run
-    is the same (the draws are keyed per quantum).  ``draws`` defaults to
-    :class:`repro_torch.smt.scan_engine.TorchDraws` keyed from the sim's
-    seed.  Telemetry rings are not ported yet.
-    """
-    if telemetry or app_telemetry:
-        raise NotImplementedError(
-            "telemetry rings of the open system are not ported yet "
-            "(ROADMAP, open item 1)")
-    machine = sim.machine
-    spec: ScanPolicy = sim.policy
-    params = machine.params
-    device = sim.device
-    prep = _prepare_inputs(sim, n_quanta)
-    j = prep["j"]
-    arrive_q, pids = prep["arrive_q"], prep["pids"]
-    job_target, pool_rate = prep["job_target"], prep["pool_rate"]
-    fcfg = prep["fcfg"]
-    faulted = fcfg is not None
-    race = _build_race(spec, params, sim.capacity, n_quanta, prep["j_pad"],
-                       sim.admission, fcfg, device)
-    inputs = _commit(sim, prep, device)
-    draws = draws if draws is not None else TorchDraws(sim.seed, device)
 
+def _grid_race(sims, preps, n_quanta: int, j_pad: int, syn_tables, draws):
+    """A grid of lanes, built and committed: ``run()`` runs the whole
+    horizon once and returns the logs on the device."""
+    base = sims[0]
+    faulted = any(prep["fcfg"] is not None for prep in preps)
+    race = _build_race(base.policy, base.machine.params, base.capacity,
+                       n_quanta, j_pad, _lane_mode(sims),
+                       faulted, base.device)
+    inputs = _commit(sims, preps, j_pad, n_quanta, syn_tables, base.device)
+    return lambda: race(inputs, draws)
+
+
+def _run_lanes(sims, preps, n_quanta: int, j_pad: int, syn_tables,
+               repeats: int, warmup: bool, draws):
+    """Run a grid of lanes: an untimed warm run when ``warmup``, then
+    ``repeats`` timed runs, each bracketed by ``torch.cuda.synchronize()``
+    on a GPU.  Returns the fetched logs (numpy, lane axis first) and the
+    median wall of the timed runs."""
+    device = sims[0].device
+    run = _grid_race(sims, preps, n_quanta, j_pad, syn_tables, draws)
     out = None
     if warmup:
-        out = race(inputs, draws)
+        out = run()
     walls = []
     for _ in range(max(int(repeats), 1)):
         _sync(device)
         t0 = time.perf_counter()
-        out = race(inputs, draws)
+        out = run()
         _sync(device)
         walls.append(time.perf_counter() - t0)
-    per_quantum = float(np.median(walls)) / max(n_quanta, 1)
+    return tuple(o.cpu().numpy() for o in out), float(np.median(walls))
 
-    fetched = tuple(o.cpu().numpy() for o in out)
-    admit, finish, queue_depth, n_active, n_solo = fetched[:5]
-    retries = retry_at = evictions = requeues = None
+
+def _lane_stats(sim, prep, n_quanta: int, fetched, i: int,
+                per_quantum: float) -> OnlineStats:
+    """Lane ``i``'s :class:`OnlineStats` from a grid's fetched logs; a
+    faulted lane's job-conservation invariant is checked here."""
+    params = sim.machine.params
+    j = prep["j"]
+    arrive_q, pids = prep["arrive_q"], prep["pids"]
+    job_target, pool_rate = prep["job_target"], prep["pool_rate"]
+    faulted = prep["fcfg"] is not None
+    admit, finish, queue_depth, n_active, n_solo = (f[i] for f in fetched[:5])
+    retries = retry_at = None
     if faulted:
-        retries, retry_at, evictions, requeues = fetched[5:9]
+        retries, retry_at, evictions, requeues = (f[i] for f in fetched[5:9])
         _check_conservation(prep, n_quanta, admit, finish, retries, retry_at)
     solo_s = (job_target[:j] / pool_rate[pids] * params.quantum_s
               if j else np.zeros(0))
-    name = spec.name or f"scan-{spec.kind}"
+    name = sim.policy.name or f"scan-{sim.policy.kind}"
     stats = OnlineStats.from_device_logs(
         policy_name=name,
         quantum_s=params.quantum_s,
@@ -622,6 +715,39 @@ def run_device_sim(sim, n_quanta: int, repeats: int = 1, warmup: bool = True,
         _attach_fault_stats(stats, prep, retries, retry_at, evictions,
                             requeues)
     return stats
+
+
+def run_device_sim(sim, n_quanta: int, repeats: int = 1, warmup: bool = True,
+                   draws=None, telemetry: bool = False,
+                   app_telemetry: bool = False) -> OnlineStats:
+    """Run a :class:`repro_torch.online.sim.ClusterSim` configuration on its
+    device.
+
+    ``warmup`` runs the whole horizon once untimed; then ``repeats`` timed
+    runs, each bracketed by ``torch.cuda.synchronize()`` on a GPU, give
+    the median wall time per quantum in ``OnlineStats.policy_s`` (policy,
+    machine and bookkeeping together, spread over the horizon).  Every run
+    is the same (the draws are keyed per quantum).  ``draws`` defaults to
+    :class:`repro_torch.smt.scan_engine.TorchDraws` keyed from the sim's
+    seed.  Telemetry rings are not ported yet.
+
+    The run is a grid of one lane; to run many scenarios (seeds, loads,
+    admission rules, fault profiles) use
+    :func:`repro_torch.online.batch_sim.run_device_sim_batched`, which
+    runs them all at once, each lane equal to its run here.
+    """
+    if telemetry or app_telemetry:
+        raise NotImplementedError(
+            "telemetry rings of the open system are not ported yet "
+            "(ROADMAP, open item 1)")
+    prep = _prepare_inputs(sim, n_quanta)
+    draws = draws if draws is not None else TorchDraws(sim.seed, sim.device)
+    fetched, wall = _run_lanes(
+        [sim], [prep], n_quanta, prep["j_pad"],
+        (prep["syn_cost"], prep["syn_mean"], prep["syn_stacks"]), repeats,
+        warmup, LaneDraws([draws]))
+    return _lane_stats(sim, prep, n_quanta, fetched, 0,
+                       wall / max(n_quanta, 1))
 
 
 def _attach_fault_stats(stats: OnlineStats, prep, retries, retry_at,

@@ -106,7 +106,9 @@ class ClusterSim:
             draws=None, telemetry: bool = False,
             app_telemetry: bool = False) -> OnlineStats:
         """Run ``n_quanta`` quanta; see
-        :func:`repro_torch.online.device_sim.run_device_sim`."""
+        :func:`repro_torch.online.device_sim.run_device_sim`.  A grid of
+        such runs goes faster as one run:
+        :func:`repro_torch.online.batch_sim.run_device_sim_batched`."""
         from repro_torch.online.device_sim import run_device_sim
 
         return run_device_sim(self, n_quanta, repeats=repeats, warmup=warmup,

@@ -27,6 +27,14 @@ bit for bit.  The initial pairing is host numpy,
 
 Odd populations follow the idle-context convention: a slot whose partner
 is the idle vertex runs alone, interference-free, that quantum.
+
+Lanes.  :func:`run_quanta_multi_batched` races the same policies over a
+batch of seeds at once: every per-slot tensor of the race takes a leading
+lane axis, each quantum's operations run once for all lanes, and a
+:class:`LaneDraws` hands lane i the draws of its own seed.  The machine
+quantum, the policy steps and the race itself are written over any
+leading lane axes, so :func:`run_quanta_scan` is the same code without
+one.
 """
 
 from __future__ import annotations
@@ -161,6 +169,35 @@ class TorchDraws:
         return x, y, u
 
 
+class LaneDraws:
+    """The draws of a lane-batched run: one draws object per lane, each
+    quantum's numbers stacked on a leading lane axis.
+
+    ``noise(q, n)`` -> (L, n, 4), ``phase(q, lam (L, n))`` -> (L, n) and
+    ``linux(k, q, n)`` -> three (L, 1) tensors; lane i gets exactly what
+    ``lanes[i]`` gives a single-lane run.  Each lane draws apart (two
+    small launches a quantum a lane for the machine's noise and phases),
+    plus one stack a draw when L > 1."""
+
+    def __init__(self, lanes: Sequence):
+        self.lanes = list(lanes)
+
+    @staticmethod
+    def _stack(parts):
+        return parts[0][None] if len(parts) == 1 else torch.stack(parts)
+
+    def noise(self, q: int, n: int) -> torch.Tensor:
+        return self._stack([d.noise(q, n) for d in self.lanes])
+
+    def phase(self, q: int, lam: torch.Tensor) -> torch.Tensor:
+        return self._stack([d.phase(q, lam[k])
+                            for k, d in enumerate(self.lanes)])
+
+    def linux(self, k: int, q: int, n: int):
+        per_lane = [d.linux(k, q, n) for d in self.lanes]
+        return tuple(self._stack(list(t)) for t in zip(*per_lane))
+
+
 def _corun_components_scan(dt: DeviceTables, ph, partner,
                            params: MachineParams, aid=None):
     """Batched interference transform over all slots.
@@ -169,29 +206,31 @@ def _corun_components_scan(dt: DeviceTables, ph, partner,
     masked to zero, so its components are exactly the solo components.
     ``aid`` (optional) maps slots to pool rows of ``dt``: the open
     system's slot -> application indirection.  The closed race's slots are
-    pool rows (the default).
+    pool rows (the default).  ``ph``, ``partner`` and ``aid`` may carry
+    leading lane axes; partners index within their own lane.
     """
-    n = ph.shape[0]
+    n = ph.shape[-1]
     idx = torch.arange(n, device=ph.device)
     co = (partner != idx).to(torch.float32)
     if aid is None:
         aid, aidp = idx, partner
         mem, fetch = dt.mem_sens, dt.fetch_sens
     else:
-        aidp = aid[partner]
+        aidp = aid.gather(-1, partner)
         mem, fetch = dt.mem_sens[aid], dt.fetch_sens[aid]
     c = dt.comps[aid, ph]
     cpi = c.sum(-1)
-    php = ph[partner]
+    php = ph.gather(-1, partner)
     u = dt.util[aidp, php] * co
     f = dt.x_fe[aidp, php] * co
     m = dt.x_be[aidp, php] * co
     return torch.stack(
         [
-            c[:, 0] * (1.0 + params.a_disp * u),
-            c[:, 1] * (1.0 + params.a_hw * u),
-            c[:, 2] * (1.0 + params.a_fe * f) + params.e_fe * fetch * f * cpi,
-            c[:, 3] * (1.0 + params.a_be * m + params.b_be * mem * m * m)
+            c[..., 0] * (1.0 + params.a_disp * u),
+            c[..., 1] * (1.0 + params.a_hw * u),
+            c[..., 2] * (1.0 + params.a_fe * f)
+            + params.e_fe * fetch * f * cpi,
+            c[..., 3] * (1.0 + params.a_be * m + params.b_be * mem * m * m)
             + params.e_be * mem * m * cpi,
         ],
         dim=-1,
@@ -202,11 +241,10 @@ def _pmu_counters_scan(comps, omega, retire, cycles: float,
                        params: MachineParams, z=None):
     """Batched PMU counters; ``z`` (n, 4) standard normals make the four
     noisy columns lognormal, ``z=None`` gives the noiseless counters."""
-    n = comps.shape[0]
     cpi = comps.sum(-1)
     insts = cycles / cpi
-    frac = comps / cpi[:, None]
-    x_fe, x_be = frac[:, 2], frac[:, 3]
+    frac = comps / cpi[..., None]
+    x_fe, x_be = frac[..., 2], frac[..., 3]
     overlap = omega * torch.minimum(x_fe, x_be)
     noisy_cols = torch.stack(
         [
@@ -220,13 +258,16 @@ def _pmu_counters_scan(comps, omega, retire, cycles: float,
     if z is not None:
         noisy_cols = noisy_cols * torch.exp(params.noise_sigma * z)
     return torch.cat(
-        [torch.full((n, 1), cycles, dtype=torch.float32, device=comps.device),
+        [torch.full(cpi.shape + (1,), cycles, dtype=torch.float32,
+                    device=comps.device),
          noisy_cols], dim=-1)
 
 
 def _make_machine_quantum(dt: DeviceTables, params: MachineParams):
     """Closure: one quantum of the fixed-horizon machine,
-    ``quantum(state, partner, draws, q) -> (counters, state', slowdown)``."""
+    ``quantum(state, partner, draws, q) -> (counters, state', slowdown)``.
+    State and partner tensors may carry leading lane axes (then
+    ``slowdown`` has them too), matched by the draws' shapes."""
     n = dt.n_apps
     idx = torch.arange(n, device=dt.comps.device)
     cycles = float(np.float32(params.quantum_cycles))
@@ -236,7 +277,7 @@ def _make_machine_quantum(dt: DeviceTables, params: MachineParams):
         comps = _corun_components_scan(dt, ph, partner, params)
         cpi = comps.sum(-1)
         solo_cpi = dt.comps[idx, ph].sum(-1)
-        slowdown = torch.mean(cpi / solo_cpi)
+        slowdown = torch.mean(cpi / solo_cpi, -1)
 
         retired = cycles / cpi * dt.retire
         counters = _pmu_counters_scan(comps, dt.omega, dt.retire, cycles,
@@ -266,7 +307,7 @@ def _make_machine_quantum(dt: DeviceTables, params: MachineParams):
 def _machine_partner_of(mpart, n: int):
     """Matcher-space partner (P,) -> machine partner (N,): idle/pad -> self."""
     idx = torch.arange(n, device=mpart.device)
-    mp = mpart[:n]
+    mp = mpart[..., :n]
     return torch.where(mp < n, mp, idx)
 
 
@@ -276,7 +317,8 @@ def _make_policy_step(spec: ScanPolicy, k: int, n: int, p_pad: int,
 
     ``first`` marks the first quantum with counters: the synpa policy then
     runs the full sort-seed + 2-opt re-match instead of refining the
-    carried pairing.
+    carried pairing.  Every tensor may carry leading lane axes; the linux
+    policy's draws then come one a lane.
     """
     if spec.kind == "static":
         def step(q, counters, mpart, st, draws, first=False):
@@ -288,14 +330,14 @@ def _make_policy_step(spec: ScanPolicy, k: int, n: int, p_pad: int,
 
         def step(q, counters, mpart, st, draws, first=False):
             x, y, u = draws.linux(k, q, n)
-            px = mpart[x]
-            py = mpart[y]
+            px = mpart.gather(-1, x)
+            py = mpart.gather(-1, y)
             distinct = (y != x) & (y != px) & (px < n) & (py < n)
             do = (u < p_mig) & distinct
             # Swap x and y between their cores: (px, x)(py, y) ->
             # (px, y)(py, x), written in the reference's order.
-            swapped = (mpart.scatter(0, px, y).scatter(0, y, px)
-                       .scatter(0, py, x).scatter(0, x, py))
+            swapped = (mpart.scatter(-1, px, y).scatter(-1, y, px)
+                       .scatter(-1, py, x).scatter(-1, x, py))
             return torch.where(do, swapped, mpart), st
         return step
 
@@ -312,7 +354,7 @@ def _make_policy_step(spec: ScanPolicy, k: int, n: int, p_pad: int,
         partner = _machine_partner_of(mpart, n)
         solve = partner != idx
         masks = torch.stack([solve, ~solve, torch.ones_like(solve),
-                             torch.zeros_like(solve)])
+                             torch.zeros_like(solve)], dim=-2)
         cost, st = fstep(counters, partner, st, masks, odd)
         if first or spec.matcher == "full":
             mpart = matching.device_pairs_partner(
@@ -357,7 +399,10 @@ def build_race(tables, params: MachineParams, policies: Sequence[ScanPolicy],
     Returns ``race(dt, init_mpart (K, P), init_st (K, N, 4), draws)`` ->
     ``(total_retired (K, N), total_cycles (K, N), slowdown_sum (K,))``.
     Each policy runs quantum 0 on its initial pairing, then quanta
-    1..Q-1 of policy step + machine quantum.
+    1..Q-1 of policy step + machine quantum.  With seed lanes,
+    ``init_mpart`` (K, L, P), ``init_st`` (K, L, N, 4) and a
+    :class:`LaneDraws` of L lanes give outputs with the lane axis after
+    the policy axis.
     """
     device = torch.device(device)
     n = int(tables.n_apps)
@@ -371,11 +416,14 @@ def build_race(tables, params: MachineParams, policies: Sequence[ScanPolicy],
              for k, s in enumerate(policies)]
 
     def run_one(dt, quantum, policy_step, mpart, st, draws):
+        shape = mpart.shape[:-1] + (n,)      # lanes, slots
         state = _MachineState(
-            phase_idx=torch.zeros(n, dtype=torch.int64, device=device),
-            phase_left=dt.duration[:, 0].clone(),
-            total_retired=torch.zeros(n, dtype=torch.float32, device=device),
-            total_cycles=torch.zeros(n, dtype=torch.float32, device=device),
+            phase_idx=torch.zeros(shape, dtype=torch.int64, device=device),
+            phase_left=dt.duration[:, 0].expand(shape).clone(),
+            total_retired=torch.zeros(shape, dtype=torch.float32,
+                                      device=device),
+            total_cycles=torch.zeros(shape, dtype=torch.float32,
+                                     device=device),
         )
         # Quantum 0: the initial random pairing, no counters yet.
         counters, state, slow0 = quantum(
@@ -389,7 +437,8 @@ def build_race(tables, params: MachineParams, policies: Sequence[ScanPolicy],
             slows.append(slow)
         # Summed as the reference does: quanta 0 and 1, then the rest.
         head = slows[0] + slows[1] if len(slows) > 1 else slows[0]
-        slow_sum = head + torch.stack(slows[2:]).sum() if len(slows) > 2 else head
+        slow_sum = (head + torch.stack(slows[2:]).sum(0) if len(slows) > 2
+                    else head)
         return state.total_retired, state.total_cycles, slow_sum
 
     def race(dt: DeviceTables, init_mpart, init_st, draws):
@@ -411,6 +460,39 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _timed(fn, device: torch.device, repeats: int):
+    """Run ``fn`` once (its output is the result), then ``repeats`` more
+    times, each bracketed by ``torch.cuda.synchronize()`` on a GPU: the
+    output and the median wall of the timed runs (the first run's when
+    ``repeats=0``)."""
+    walls: List[float] = []
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    warm = time.perf_counter() - t0
+    for _ in range(int(repeats)):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        walls.append(time.perf_counter() - t0)
+    return out, float(np.median(walls) if walls else warm)
+
+
+def _result(n: int, n_quanta: int, retired, cycles, slow_sum,
+            per_quantum: float) -> ThroughputResult:
+    ipc = retired / np.maximum(cycles, 1.0)
+    return ThroughputResult(
+        n_apps=n,
+        quanta=n_quanta,
+        ipc=ipc,
+        total_retired=float(retired.sum()),
+        mean_true_slowdown=float(slow_sum) / max(n_quanta, 1),
+        machine_s_per_quantum=per_quantum,
+    )
+
+
 def run_quanta_scan(
     params: MachineParams,
     profiles,
@@ -427,7 +509,9 @@ def run_quanta_scan(
     and reports the median wall time per quantum in
     ``machine_s_per_quantum`` (the warm run's when ``repeats=0``).  Each
     timed run is bracketed by ``torch.cuda.synchronize()`` on a GPU.
-    ``draws`` defaults to :class:`TorchDraws` keyed from ``seed``.
+    ``draws`` defaults to :class:`TorchDraws` keyed from ``seed``.  To
+    race several seeds, use :func:`run_quanta_multi_batched`: one run for
+    all of them.
     """
     device = resolve_device(device)
     tables = PhaseTables.build(profiles)
@@ -444,30 +528,74 @@ def run_quanta_scan(
     dt = DeviceTables.build(tables, device)
     draws = draws if draws is not None else TorchDraws(seed, device)
 
-    walls: List[float] = []
-    _sync(device)
-    t0 = time.perf_counter()
-    out = race(dt, init_mpart, init_st, draws)
-    _sync(device)
-    warm = time.perf_counter() - t0
-    for _ in range(int(repeats)):
-        _sync(device)
-        t0 = time.perf_counter()
-        race(dt, init_mpart, init_st, draws)
-        _sync(device)
-        walls.append(time.perf_counter() - t0)
-    per_quantum = float(np.median(walls) if walls else warm) / max(n_quanta, 1)
-
+    out, wall = _timed(lambda: race(dt, init_mpart, init_st, draws), device,
+                       repeats)
+    per_quantum = wall / max(n_quanta, 1)
     retired, cycles, slow_sum = (o.cpu().numpy() for o in out)
-    results: Dict[str, ThroughputResult] = {}
-    for k, name in enumerate(policies):
-        ipc = retired[k] / np.maximum(cycles[k], 1.0)
-        results[name] = ThroughputResult(
-            n_apps=n,
-            quanta=n_quanta,
-            ipc=ipc,
-            total_retired=float(retired[k].sum()),
-            mean_true_slowdown=float(slow_sum[k]) / max(n_quanta, 1),
-            machine_s_per_quantum=per_quantum,
-        )
-    return results
+    return {name: _result(n, n_quanta, retired[k], cycles[k], slow_sum[k],
+                          per_quantum)
+            for k, name in enumerate(policies)}
+
+
+def run_quanta_multi_batched(
+    machine,
+    profiles,
+    policies: Dict[str, ScanPolicy],
+    seeds: Sequence[int],
+    n_quanta: int = 20,
+    tables: Optional[PhaseTables] = None,
+    repeats: int = 1,
+    device=None,
+    draws=None,
+    telemetry: bool = False,
+    app_telemetry: bool = False,
+) -> Dict[str, List[ThroughputResult]]:
+    """The closed race over a batch of seeds at once: seed lanes on a
+    leading axis of every per-slot tensor, each quantum's operations run
+    once for all of them.
+
+    Returns ``{policy_name: [ThroughputResult, ...]}`` in ``seeds`` order.
+    Lane i starts from the initial pairing of ``default_rng(seeds[i] +
+    7919)`` and sees the draws of ``seeds[i]``: ``draws`` (a
+    :class:`LaneDraws` or alike) defaults to one :class:`TorchDraws` a
+    seed, so each lane's numbers are those :func:`run_quanta_scan` of
+    that seed draws.  Each lane keeps its own GN and 2-opt freezes; the
+    host reads the fallback and 2-opt flags once for all lanes.
+
+    Runs the batch once (the result), then ``repeats`` more times, timed;
+    per-lane ``machine_s_per_quantum`` is the batch's median wall (the
+    first run's when ``repeats=0``) over ``len(seeds) * n_quanta``.  ``machine`` supplies the machine params;
+    the telemetry rings are not ported yet.
+    """
+    if telemetry or app_telemetry:
+        raise NotImplementedError(
+            "telemetry rings of the closed race are not ported yet "
+            "(ROADMAP, open item 1)")
+    seeds = [int(s) for s in seeds]
+    if not seeds:
+        raise ValueError("a batched race needs at least one seed lane")
+    device = resolve_device(device)
+    params = machine.params
+    tables = tables if tables is not None else PhaseTables.build(profiles)
+    n = int(tables.n_apps)
+    p_pad = fused_pad(n)
+    specs = list(policies.values())
+    race = build_race(tables, params, specs, n_quanta, device)
+    init_mpart = torch.as_tensor(np.stack([np.stack([
+        _initial_mpart(n, p_pad, np.random.default_rng(seed + 7919))
+        for seed in seeds]) for _ in specs]), device=device)
+    init_st = torch.as_tensor(np.stack([
+        np.stack([_uniform_stacks(s, n)] * len(seeds)) for s in specs]),
+        device=device)
+    dt = DeviceTables.build(tables, device)
+    if draws is None:
+        draws = LaneDraws([TorchDraws(seed, device) for seed in seeds])
+
+    out, wall = _timed(lambda: race(dt, init_mpart, init_st, draws), device,
+                       repeats)
+    per_quantum = wall / max(len(seeds) * n_quanta, 1)
+    retired, cycles, slow_sum = (o.cpu().numpy() for o in out)
+    return {name: [_result(n, n_quanta, retired[k, i], cycles[k, i],
+                           slow_sum[k, i], per_quantum)
+                   for i in range(len(seeds))]
+            for k, name in enumerate(policies)}

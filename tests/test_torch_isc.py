@@ -85,3 +85,17 @@ def test_collapse_and_helpers_match():
     for c in (3, 4):
         np.testing.assert_array_equal(tisc.uniform_stack(c),
                                       jisc.uniform_stack(c))
+
+
+@pytest.mark.parametrize("name", ["SYNPA4_R-FEBE", "SYNPA3_N"])
+def test_stacks_broadcast_over_lanes(name):
+    """``raw_stack`` and ``build_stack`` on counters with a leading lane
+    axis (the batched runs' (L, n, 5) rows) give each lane what the lane
+    alone gives, bit for bit."""
+    method = tisc.STACK_METHODS[name]
+    c = torch.as_tensor(_counters(3, n=96).reshape(3, 32, 4))
+    lanes = tisc.build_stack(tisc.raw_stack(*c.unbind(-1)), method)
+    assert tuple(lanes.shape) == (3, 32, 4)
+    for k in range(3):
+        alone = tisc.build_stack(tisc.raw_stack(*c[k].unbind(-1)), method)
+        assert torch.equal(lanes[k], alone), k

@@ -246,3 +246,36 @@ def test_device_idle_flag_equals_host_idle_row(p, n_valid, flag):
         # flag is on, DIAG when it is off.
         edge = got[n_valid, :n_valid][valid_t]
         assert bool((edge == (jmat.IDLE_COST if flag else DIAG)).all())
+
+
+def _lane_inputs(lanes, p, seed):
+    """``lanes`` lanes at output size ``p``: ``n_valid = p - 1`` stacks,
+    about 10% of the slots empty, the idle vertex live in every other
+    lane."""
+    rng = np.random.default_rng(seed)
+    n_valid = p - 1
+    st = rng.dirichlet(np.ones(4), size=(lanes, n_valid)).astype(np.float32)
+    valid = rng.random((lanes, n_valid)) > 0.1
+    flag = np.arange(lanes) % 2 == 0
+    coeffs = rng.normal(0.3, 0.5, (4, 4)).astype(np.float32)
+    return (torch.as_tensor(st), torch.as_tensor(coeffs), n_valid,
+            torch.as_tensor(valid), torch.as_tensor(flag))
+
+
+@pytest.mark.parametrize("p", [8, 264, 1032])
+@pytest.mark.parametrize("lanes", [1, 3, 12])
+def test_lane_batched_plain_equals_single_calls(lanes, p):
+    """The plain version with a lane axis: each lane's slab equals, bit for
+    bit, the one-lane call on that lane's inputs."""
+    st, coeffs, n_valid, valid, flag = _lane_inputs(lanes, p, 17 * p + lanes)
+    got = ops.pair_costs(st, coeffs, n_categories=4, n_valid=n_valid,
+                         valid=valid, idle_row=n_valid, p=p, idle_flag=flag)
+    assert tuple(got.shape) == (lanes, p, p) and got.dtype == torch.float32
+    for k in range(lanes):
+        want = ops.pair_costs(st[k], coeffs, n_categories=4, n_valid=n_valid,
+                              valid=valid[k], idle_row=n_valid, p=p,
+                              idle_flag=flag[k:k + 1])
+        assert torch.equal(got[k], want), k
+        # The idle row is live exactly in the lanes whose flag is set.
+        edge = got[k, n_valid, :n_valid][valid[k]]
+        assert bool((edge == (jmat.IDLE_COST if flag[k] else DIAG)).all())

@@ -178,3 +178,59 @@ def test_wrapper_refuses_a_flag_it_cannot_read(cuda):
         with pytest.raises(err):
             kernel.pair_score_cuda(st, coeffs, 4, 12, valid, 12, 16,
                                    idle_flag=bad)
+
+
+#: Lane counts and output sizes of the lane-batched kernel's check.
+LANES = [1, 3, 12]
+LANE_SIZES = [8, 264, 1032]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", LANE_SIZES)
+@pytest.mark.parametrize("lanes", LANES)
+def test_lane_batched_kernel_matches_single_launches(cuda, lanes, p):
+    """One launch for L lanes (empty slots, the idle vertex live in every
+    other lane): each lane's slab equals a one-lane launch on that lane's
+    inputs bit for bit, and the plain version within 2e-5 (sentinels and
+    idle edges exact)."""
+    rng = np.random.default_rng(19 * p + lanes)
+    n_valid = p - 1
+    st = torch.as_tensor(rng.dirichlet(np.ones(4), size=(lanes, n_valid))
+                         .astype(np.float32), device=cuda)
+    valid = torch.as_tensor(rng.random((lanes, n_valid)) > 0.1, device=cuda)
+    flag = torch.as_tensor(np.arange(lanes) % 2 == 0, device=cuda)
+    _, coeffs = _inputs(4, p, cuda)
+    before = kernel.LAUNCHES
+    got = kernel.pair_score_cuda(st, coeffs, 4, n_valid, valid, n_valid, p,
+                                 idle_flag=flag)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES == before + 1
+    assert tuple(got.shape) == (lanes, p, p)
+    want = pair_costs_plain(st, coeffs, 4, n_valid, valid, n_valid, p,
+                            idle_flag=flag)
+    for k in range(lanes):
+        one = kernel.pair_score_cuda(st[k], coeffs, 4, n_valid, valid[k],
+                                     n_valid, p, idle_flag=flag[k:k + 1])
+        assert torch.equal(got[k], one), k
+        diag, idle_e = fixed_entries(p, n_valid, valid[k],
+                                     n_valid if bool(flag[k]) else -1, cuda)
+        assert bool((got[k][diag] == DIAG).all())
+        assert bool((got[k][idle_e] == IDLE_COST).all())
+        fixed = diag | idle_e
+        torch.testing.assert_close(got[k][~fixed], want[k][~fixed],
+                                   rtol=TOL, atol=TOL)
+
+
+@pytest.mark.gpu
+def test_wrapper_refuses_lanes_it_cannot_read(cuda):
+    st, coeffs = _inputs(16, 0, cuda)
+    st = st[None].repeat(3, 1, 1)
+    valid = torch.ones(3, 12, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        kernel.pair_score_cuda(st, coeffs, 4, 12, valid[:2])
+    with pytest.raises(ValueError):
+        kernel.pair_score_cuda(st, coeffs, 4, 12, valid[:, :11])
+    with pytest.raises(TypeError):
+        kernel.pair_score_cuda(st, coeffs, 4, 12, valid, 12, 16,
+                               idle_flag=torch.ones(2, dtype=torch.bool,
+                                                    device=cuda))

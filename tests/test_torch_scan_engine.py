@@ -10,7 +10,12 @@ With the same fitted ``SYNPA4_R-FEBE`` coefficients, the whole race at
 N in {16, 15} (8 quanta, all three policy kinds) must agree per policy on
 ``total_retired`` and ``mean_true_slowdown`` to rtol 1e-4.  A free-running
 race on the port's own ``torch.Generator`` draws is held to the scheduler's
-own check: ``synpa4`` beats ``random`` on mean true slowdown.
+own check: ``synpa4`` beats ``random`` on mean true slowdown; and the
+port's draws are held to the reference's distributions: the counter
+noise's lognormal moments, the phase-length draws' Poisson moments, and
+a free-running static race's aggregates against the reference engine's
+within 3% (the card's twin of all three is
+``test_torch_scan_engine_gpu.py``).
 """
 
 import pytest
@@ -198,3 +203,75 @@ def test_free_running_race(models):
     assert res["synpa4"].mean_true_slowdown < res["random"].mean_true_slowdown
     # random and linux face the same initial pairing and workload draws
     assert res["random"].ipc_geomean > 0 and res["linux"].ipc_geomean > 0
+
+
+def test_counter_noise_lognormal_moments():
+    """The port's own draws (``TorchDraws`` on the CPU) make the counter
+    noise distribution-equal to the reference's lognormal draws: the
+    log-ratio of noisy to noiseless counters over 200 quanta has mean 0
+    (within three standard errors) and standard deviation ``noise_sigma``
+    (within 5%), the port's twin of ``tests/test_scan_engine.py``'s
+    moment test."""
+    params = tmc.MachineParams()
+    n = 64
+    dt = tse.DeviceTables.build(
+        tmc.PhaseTables.build(twl.scaled_workload(n, seed=n)), "cpu")
+    idx = torch.arange(n)
+    ph = torch.zeros(n, dtype=torch.int64)
+    comps = tse._corun_components_scan(dt, ph, idx.flip(0), params)
+    cycles = float(np.float32(params.quantum_cycles))
+    base = tse._pmu_counters_scan(comps, dt.omega, dt.retire, cycles, params)
+    draws = tse.TorchDraws(0, "cpu")
+    logs = torch.cat([torch.log(tse._pmu_counters_scan(
+        comps, dt.omega, dt.retire, cycles, params, draws.noise(q, n))[:, 1:]
+        / base[:, 1:]).ravel() for q in range(200)]).double().numpy()
+    sigma = params.noise_sigma
+    assert abs(logs.mean()) < 3 * sigma / np.sqrt(logs.size)
+    assert abs(logs.std() - sigma) < 0.05 * sigma
+
+
+def _phase_draw_residuals(draws, device, quanta=200, n=64):
+    """Each phase-length draw at the pool's own means (every phase of a
+    64-app workload), standardised as ``(x - lam) / sqrt(lam)``, over
+    ``quanta`` quanta: a Poisson(lam) draw has mean 0 and variance 1."""
+    dt = tse.DeviceTables.build(
+        tmc.PhaseTables.build(twl.scaled_workload(n, seed=n)), device)
+    live = (torch.arange(dt.duration.shape[1], device=device)
+            < dt.n_phases[:, None])
+    lam = dt.duration[live]
+    x = torch.stack([torch.as_tensor(draws.phase(q, lam), device=device)
+                     for q in range(quanta)]).double()
+    assert bool((x >= 0).all()) and bool((x == x.round()).all())
+    return ((x - lam.double()) / lam.double().sqrt()).cpu().numpy().ravel()
+
+
+@pytest.mark.parametrize("who", ["port", "reference"])
+def test_phase_draws_poisson_moments(who):
+    """The port's phase-length draws (``TorchDraws.phase`` on the CPU) are
+    Poisson at the pool's means, as the reference's threefry draws are:
+    over 200 quanta the standardised residual has mean 0 (within three
+    standard errors) and variance 1 (within 5%).  The reference's own
+    draws pass the same check."""
+    draws = tse.TorchDraws(0, "cpu") if who == "port" else JaxDraws(0)
+    z = _phase_draw_residuals(draws, "cpu")
+    assert abs(z.mean()) < 3 / np.sqrt(z.size)
+    assert abs(z.var() - 1.0) < 0.05
+
+
+def test_free_running_aggregates_match_reference_engine():
+    """A static-policy race at N = 64 over 40 quanta on the port's own
+    draws agrees with the reference engine's (threefry draws, same seed,
+    same first pairing) on mean true slowdown and IPC geomean within 3%:
+    different noise and phase trajectories, same distributions."""
+    want = jse.run_quanta_scan(
+        jmc.SMTMachine(jmc.MachineParams(), seed=0),
+        jwl.scaled_workload(64, seed=64),
+        {"static": jse.ScanPolicy(kind="static")}, n_quanta=40,
+        seed=9)["static"]
+    got = tse.run_quanta_scan(
+        tmc.MachineParams(), twl.scaled_workload(64, seed=64),
+        {"static": tse.ScanPolicy(kind="static")}, n_quanta=40, seed=9,
+        device="cpu", repeats=0)["static"]
+    assert got.mean_true_slowdown == pytest.approx(want.mean_true_slowdown,
+                                                   rel=0.03)
+    assert got.ipc_geomean == pytest.approx(want.ipc_geomean, rel=0.03)
