@@ -111,7 +111,28 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    phase 6's per quantum; and the card's draws: the counter noise's
    log-ratio moments over 200 quanta, the phase-length draws' Poisson
    moments at the pool's means over 200 quanta, and a free-running static
-   race at N = 64 over 40 quanta against the CPU's (within 3%).
+   race at N = 64 over 40 quanta against the CPU's (within 3%);
+19. the closed race's telemetry rings: phase 6's race with
+   ``app_telemetry=True`` (both rings), with every kernel's launch count
+   set to 0 just before and read just after: results equal phase 6 bit
+   for bit, ring shapes (8, 8) and (8, 1024, 9), the host syncs of one
+   ringed race audited and equal to phase 6's; at N = 16 the card's rings
+   against the CPU's on the same draws (integer columns exact, float
+   columns within rtol 1e-4, the GN columns within the plateau limit);
+   synpa4's per-app prediction error (``accuracy_report``);
+20. the open system's rings: phase 13's three synpa runs and phase 17's
+   12-lane grid with both rings: logs equal the ring-off runs bit for bit,
+   host syncs unchanged, the ring's queue, active, solo, admission and
+   departure columns equal the stats' timelines, and the grid's lane 0
+   ring against its single run's;
+21. the checkpointed open run: phase 13's ``synpa4`` fifo run under the
+   ``combined`` faults through ``run_device_sim_checkpointed`` in three
+   segments of ``CKPT_SEG`` quanta, in a temporary directory: equal to
+   phase 13's ``run_device_sim`` bit for bit; killed after one segment
+   and resumed, bit for bit; resumed past a corrupted newest snapshot, bit
+   for bit; the host syncs audited (the run's own plus one a segment);
+   its wall per quantum against ``run_device_sim``'s and the snapshot
+   write time per segment.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -123,6 +144,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -175,6 +197,10 @@ GRID_SEEDS = (11, 108, 205)
 GRID_LANES = len(GRID_RHOS) * len(GRID_ADMISSIONS) * len(GRID_SEEDS)
 #: The closed race over seed lanes (phase 18).
 RACE_SEEDS = (3, 4, 5)
+#: The checkpointed run's segment length (phase 21): three segments.
+CKPT_SEG = 8
+#: Quanta of the open run profiled without and with rings (phase 20).
+RING_PROFILE_QUANTA = 6
 #: Flash attention's edge cases: (B, Sq, Skv, Hq, Hkv, D, causal, window,
 #: q scale).  Lengths that are multiples of no tile, Sq != Skv both ways,
 #: GQA groups 1, 4 and 8, windows whose first key falls mid-tile, q scaled
@@ -367,6 +393,28 @@ def _policies(model, scan_engine, isc):
                                          method=isc.SYNPA4_R_FEBE,
                                          model=model),
     }
+
+
+def _race_inputs(tables, policies, dev):
+    """The main path's race inputs as ``run_quanta_scan`` commits them
+    (seed ``RACE_SEED``): ``(dt, init_mpart, init_st, draws)``, to run a
+    race built by ``build_race`` alone (sync audits, profiles)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.smt import scan_engine
+
+    n = int(tables.n_apps)
+    p_pad = scan_engine.fused_pad(n)
+    init_mpart = torch.as_tensor(np.stack([
+        scan_engine._initial_mpart(n, p_pad,
+                                   np.random.default_rng(RACE_SEED + 7919))
+        for _ in policies]), device=dev)
+    init_st = torch.as_tensor(np.stack(
+        [scan_engine._uniform_stacks(s, n) for s in policies.values()]),
+        device=dev)
+    return (scan_engine.DeviceTables.build(tables, dev), init_mpart, init_st,
+            scan_engine.TorchDraws(RACE_SEED, dev))
 
 
 def _pair_score_check(dev, rng, ps_kernel):
@@ -1137,7 +1185,8 @@ def _open_reference(dev, model) -> None:
 
 def _open_main_path(dev, model, kernel_mods):
     """Phase 13: the open system at capacity 1024.  Returns the kernels'
-    launches over the four runs."""
+    launches over the four runs, and for phases 20-21 each run's sim,
+    stats, host syncs and wall per quantum."""
     import dataclasses
 
     import numpy as np
@@ -1174,6 +1223,7 @@ def _open_main_path(dev, model, kernel_mods):
     counters = ("NEED_FB_SYNCS", "TWO_OPT_SYNCS", "ADMIT_SYNCS")
     owners = (regression, matching, device_sim)
     sims, stats, total = {}, {}, {n: 0 for n in kernel_mods}
+    run_syncs, run_per_q = {}, {}
     for name, (pol, kw) in runs.items():
         sim = ClusterSim(machine, pool, n_cores, pol,
                          PoissonArrivals(rate=rate, n_pool=len(pool)),
@@ -1205,6 +1255,7 @@ def _open_main_path(dev, model, kernel_mods):
         if not (st.n_completed > 0 and math.isfinite(st.mean_slowdown)):
             raise AssertionError(f"open {name}: no completed job")
         stats[name] = st
+        run_syncs[name], run_per_q[name] = syncs, per_q_ms
         faults = ""
         if st.has_faults:
             faults = (f"; faults: {int(st.failures.sum())} core failures, "
@@ -1257,7 +1308,8 @@ def _open_main_path(dev, model, kernel_mods):
     for e in sorted(seen, key=dev_us, reverse=True)[:10]:
         _line("profile", f"{dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
               f"{e.key[:100]}")
-    return total
+    return total, dict(sims=sims, stats=stats, syncs=run_syncs,
+                       per_q_ms=run_per_q)
 
 
 def _pair_score_flag_times(dev, rng, model, ps_kernel):
@@ -1543,7 +1595,8 @@ def _finish(stats):
 
 def _open_grid_main_path(dev, model, kernel_mods):
     """Phase 17: the open grid at capacity 1024.  Returns the kernels'
-    launches of the grid's main-path run."""
+    launches of the grid's main-path run, and for phase 20 the grid's
+    sims, stats and host syncs."""
     import numpy as np
     import torch
 
@@ -1781,7 +1834,7 @@ def _open_grid_main_path(dev, model, kernel_mods):
         for msg in sorted(set(warned)):
             _line("syncs", msg[:200])
         raise AssertionError("uncounted host syncs in the open grid")
-    return launches
+    return launches, dict(sims=sims, stats=grid, syncs=grid_syncs)
 
 
 def _batched_race(dev, model, kernel_mods, race_res, race_per_q):
@@ -1909,6 +1962,461 @@ def _batched_race(dev, model, kernel_mods, race_res, race_per_q):
             and abs(card.ipc_geomean - cpu.ipc_geomean)
             < 0.03 * cpu.ipc_geomean):
         raise AssertionError("the card's draws are not distribution-equal")
+    return launches
+
+
+def _bitwise_open(a, b, what: str) -> None:
+    """Two open runs equal bit for bit: phase 12's integer logs, and every
+    finish quantum and the mean slowdown exactly."""
+    import numpy as np
+
+    _same_open_run(a, b, what)
+    if not (np.array_equal(_finish(a), _finish(b))
+            and (a.mean_slowdown == b.mean_slowdown
+                 or (math.isnan(a.mean_slowdown)
+                     and math.isnan(b.mean_slowdown)))):
+        raise AssertionError(f"{what}: finish quanta or mean slowdown differ")
+    if b.has_faults:
+        for name in ("evictions", "requeues", "failures", "recoveries",
+                     "straggling"):
+            if not np.array_equal(getattr(a, name), getattr(b, name)):
+                raise AssertionError(f"{what}: {name} differs")
+
+
+#: Ring columns whose values are integers, held exactly card against CPU;
+#: the GN columns are held to the plateau limit (``_ring_close``).
+RING_INT = ("queue_head", "queue_tail", "queue_depth", "admissions",
+            "departures", "active", "solo", "repair_dirty", "two_opt_rounds",
+            "failures", "recoveries", "evictions", "requeues", "straggling")
+
+
+def _ring_close(got, want, fields, what: str) -> float:
+    """A ring of the card against the CPU's on the same draws: integer
+    columns exact, float columns within rtol 1e-4 (sums run in each
+    device's order); the GN diagnostics within the plateau limit of
+    ROADMAP §3 (plateaued rows stop at float-dependent points): step
+    counts and fallbacks within 1, the worst residual within rtol 1e-3
+    (atol 1e-7).  Returns the largest relative difference of the float
+    columns."""
+    import numpy as np
+
+    worst = 0.0
+    for k, f in enumerate(fields):
+        g, w = got[..., k], want[..., k]
+        if f in RING_INT:
+            ok = np.array_equal(g, w)
+        elif f in ("gn_iters_mean", "gn_iters_max", "gn_fallbacks"):
+            ok = bool(np.all(np.abs(g - w) <= 1.0))
+        elif f == "gn_residual_max":
+            ok = bool(np.all(np.abs(g - w) <= 1e-7 + 1e-3 * np.abs(w)))
+        else:
+            ok = bool(np.all(np.abs(g - w) <= 1e-12 + 1e-4 * np.abs(w)))
+            worst = max(worst, float(np.max(
+                np.abs(g - w) / np.maximum(np.abs(w), 1e-30), initial=0.0)))
+        if not ok:
+            raise AssertionError(f"{what}: ring column {f} differs card vs "
+                                 f"CPU past its limit: {g!r} vs {w!r}")
+    return worst
+
+
+def _app_ring_close(got, want, what: str) -> float:
+    """A per-app ring of the card against the CPU's: ids exact, slowdowns
+    within rtol 1e-4, the residual (a difference of the two) within 1e-4
+    of the largest prediction, the ST estimates within 1e-4 (the plateau
+    limit).  Returns the slowdowns' largest relative difference."""
+    import numpy as np
+
+    if not np.array_equal(got[..., :2], want[..., :2]):
+        raise AssertionError(f"{what}: app or partner ids differ")
+    g, w = got[..., 2:4], want[..., 2:4]
+    rel = float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30),
+                       initial=0.0))
+    pred_max = max(float(np.abs(want[..., 2]).max(initial=0.0)), 1.0)
+    if not (rel <= 1e-4
+            and np.abs(got[..., 4] - want[..., 4]).max(initial=0.0)
+            <= 1e-4 * pred_max
+            and np.abs(got[..., 5:] - want[..., 5:]).max(initial=0.0)
+            <= 1e-4):
+        raise AssertionError(f"{what}: per-app slowdowns, residuals or ST "
+                             "estimates past their limits")
+    return rel
+
+
+def _closed_rings(dev, model, kernel_mods, race_res, race_syncs):
+    """Phase 19: phase 6's race with both rings.  Returns the kernels'
+    launches of the ringed race."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import isc, matching, regression
+    from repro_torch.obs import accuracy
+    from repro_torch.obs.telemetry import APP_FIELDS, CLOSED_FIELDS
+    from repro_torch.smt import scan_engine
+    from repro_torch.smt.machine import MachineParams, PhaseTables
+    from repro_torch.smt.workloads import scaled_workload
+
+    params = MachineParams()
+    profiles = scaled_workload(N_APPS, seed=N_APPS)
+    policies = _policies(model, scan_engine, isc)
+    for mod in kernel_mods.values():
+        mod.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rings = scan_engine.run_quanta_scan(
+        params, profiles, policies, n_quanta=N_QUANTA, seed=RACE_SEED,
+        device=dev, repeats=0, app_telemetry=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+    if launches["pair_score"] != N_QUANTA - 1 or any(
+            v for n, v in launches.items() if n != "pair_score"):
+        raise AssertionError(f"race with rings: launches {launches}")
+    for name, r in rings.items():
+        w = race_res[name]
+        if not (r.total_retired == w.total_retired
+                and r.mean_true_slowdown == w.mean_true_slowdown
+                and np.array_equal(r.ipc, w.ipc)):
+            raise AssertionError(f"race with rings {name}: differs from "
+                                 "phase 6")
+        tl, app = r.telemetry, r.app_telemetry
+        if (tl.data.shape != (N_QUANTA, len(CLOSED_FIELDS))
+                or app.data.shape != (N_QUANTA, N_APPS, len(APP_FIELDS))
+                or not np.isfinite(tl.data).all()
+                or not np.isfinite(app.data).all()):
+            raise AssertionError(f"race with rings {name}: ring shapes "
+                                 f"{tl.data.shape}, {app.data.shape}")
+        if abs(tl.timeline("real_slowdown_mean").mean()
+               - r.mean_true_slowdown) > 1e-5 * r.mean_true_slowdown:
+            raise AssertionError(f"race with rings {name}: the ring's "
+                                 "slowdown means are not the race's")
+        _line("rings", f"N={N_APPS} {name}: results equal phase 6 bit for "
+              f"bit; rings {tl.data.shape} and {app.data.shape}; real "
+              f"slowdown max {float(tl.timeline('real_slowdown_max').max())!r}, "
+              f"pred cost mean by quantum "
+              f"{[round(float(x), 4) for x in tl.timeline('pred_cost_mean')]}"
+              f", 2-opt rounds {tl.timeline('two_opt_rounds').astype(int).tolist()}"
+              f", GN steps max {tl.timeline('gn_iters_max').astype(int).tolist()}"
+              f", fallback rows {int(tl.timeline('gn_fallbacks').sum())}")
+    # What the rings cost: the race with and without them, in turns.
+    walls = {False: [], True: []}
+    for ringed in (False, True, True, False):
+        walls[ringed].append(scan_engine.run_quanta_scan(
+            params, profiles, policies, n_quanta=N_QUANTA, seed=RACE_SEED,
+            device=dev, repeats=3, app_telemetry=ringed)[
+                "synpa4"].machine_s_per_quantum * 1e3)
+    _line("rings", f"first ringed race {first_s:.3f} s; launches {launches}; "
+          f"wall per quantum (3 policies, median of 3 after a warm run, "
+          f"taken off, on, on, off): without rings {walls[False]} ms, with "
+          f"both rings {walls[True]} ms")
+
+    # Host syncs of one ringed race: the ring-off race's, every one counted.
+    tables = PhaseTables.build(profiles)
+    race = scan_engine.build_race(tables, params, list(policies.values()),
+                                  N_QUANTA, dev, app_telemetry=True)
+    dt, init_mpart, init_st, draws = _race_inputs(tables, policies, dev)
+    torch.cuda.synchronize()
+    counted0 = regression.NEED_FB_SYNCS + matching.TWO_OPT_SYNCS
+    seen = _audited(lambda: race(dt, init_mpart, init_st, draws))
+    torch.cuda.synchronize()
+    counted = regression.NEED_FB_SYNCS + matching.TWO_OPT_SYNCS - counted0
+    _line("syncs", f"one race with both rings: {len(seen)} sync warnings, "
+          f"{counted} syncs counted; without rings (phase 6) {race_syncs}")
+    if len(seen) != counted or counted != race_syncs:
+        for msg in sorted(set(seen)):
+            _line("syncs", msg[:200])
+        raise AssertionError("the rings changed the race's host syncs")
+
+    # The card's rings against the CPU's at N = 16, on the same draws.
+    small = scaled_workload(16, seed=16)
+    card = scan_engine.run_quanta_scan(
+        params, small, policies, n_quanta=N_QUANTA, seed=5, device=dev,
+        draws=HostDraws(5, dev), repeats=0, app_telemetry=True)
+    cpu = scan_engine.run_quanta_scan(
+        params, small, _policies(model.to("cpu"), scan_engine, isc),
+        n_quanta=N_QUANTA, seed=5, device="cpu", draws=HostDraws(5, "cpu"),
+        repeats=0, app_telemetry=True)
+    for name in policies:
+        worst = _ring_close(card[name].telemetry.data,
+                            cpu[name].telemetry.data, CLOSED_FIELDS,
+                            f"N=16 {name}")
+        worst_app = _app_ring_close(card[name].app_telemetry.data,
+                                    cpu[name].app_telemetry.data,
+                                    f"N=16 {name} per-app")
+        st_err = float(np.abs(card[name].app_telemetry.data[..., 5:]
+                              - cpu[name].app_telemetry.data[..., 5:]).max())
+        same = (np.array_equal(card[name].telemetry.data,
+                               cpu[name].telemetry.data)
+                and np.array_equal(card[name].app_telemetry.data,
+                                   cpu[name].app_telemetry.data))
+        _line("rings", f"N=16 {name}: card's rings against the CPU's on the "
+              f"same draws: integer columns equal, float columns within "
+              f"{worst:.3e} (scalar) and {worst_app:.3e} (per-app) relative, "
+              f"ST estimates within {st_err:.3e}; bit for bit: {same}")
+
+    rep = accuracy.accuracy_report(rings["synpa4"].app_telemetry, window=4)
+    ov = rep["overall"]
+    worst_app = max(rep["per_app"].items(), key=lambda kv: kv[1]["mape"])
+    _line("accuracy", f"N={N_APPS} synpa4 per-app prediction error over "
+          f"{ov['n']} scored events: MAPE {ov['mape']!r}, bias "
+          f"{ov['bias']!r}, RMSE {ov['rmse']!r}; worst app {worst_app[0]} "
+          f"MAPE {worst_app[1]['mape']!r} over {worst_app[1]['n']}; "
+          f"P(|err| > 5%) {rep['ccdf']['p_gt'][2]!r}, P(|err| > 10%) "
+          f"{rep['ccdf']['p_gt'][3]!r}; drift windows of 4 quanta MAPE "
+          f"{rep['drift']['mape']}, flagged {rep['drift']['flagged']}")
+    if ov["n"] == 0:
+        raise AssertionError("synpa4's app ring scored no prediction")
+    return launches
+
+
+def _open_rings(dev, kernel_mods, open_runs, grid_runs):
+    """Phase 20: phase 13's synpa runs and phase 17's grid with both rings.
+    Returns the kernels' launches of the three runs and of the grid."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import matching, regression
+    from repro_torch.obs.telemetry import APP_FIELDS, OPEN_FIELDS
+    from repro_torch.online import device_sim, run_device_sim_batched
+    from repro_torch.smt.scan_engine import LaneDraws, TorchDraws
+
+    counters = ("NEED_FB_SYNCS", "TWO_OPT_SYNCS", "ADMIT_SYNCS")
+    owners = (regression, matching, device_sim)
+
+    def counted(fn):
+        before = [getattr(m, c) for m, c in zip(owners, counters)]
+        out = fn()
+        return out, [getattr(m, c) - b
+                     for m, c, b in zip(owners, counters, before)]
+
+    def timelines_match(st, what):
+        tl = st.telemetry
+        for col, series in (("queue_depth", st.queue_depth),
+                            ("active", st.active),
+                            ("departures", st.departures),
+                            ("admissions", st.admissions),
+                            ("solo", st.solo_quanta)):
+            if not np.array_equal(tl.timeline(col), series):
+                raise AssertionError(f"{what}: ring column {col} is not the "
+                                     "stats' timeline")
+        if st.has_faults and not np.array_equal(tl.timeline("evictions"),
+                                                st.evictions):
+            raise AssertionError(f"{what}: ring evictions differ")
+        valid = st.app_telemetry.valid()
+        if not np.array_equal(valid.sum(1), st.active):
+            raise AssertionError(f"{what}: app ring occupancy differs")
+
+    total = {n: 0 for n in kernel_mods}
+    for name in ("synpa4 fifo", "synpa4 synergy",
+                 "synpa4 fifo combined faults"):
+        sim = open_runs["sims"][name]
+        for mod in kernel_mods.values():
+            mod.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, syncs = counted(lambda: sim.run(OPEN_QUANTA, warmup=False,
+                                            app_telemetry=True))
+        run_s = time.perf_counter() - t0
+        for n, m in kernel_mods.items():
+            total[n] += m.LAUNCHES
+        if kernel_mods["pair_score"].LAUNCHES != OPEN_QUANTA:
+            raise AssertionError(f"open {name} with rings: pair_score "
+                                 f"launched {kernel_mods['pair_score'].LAUNCHES}")
+        _bitwise_open(st, open_runs["stats"][name], f"open {name} with rings")
+        if syncs != open_runs["syncs"][name]:
+            raise AssertionError(f"open {name}: syncs with rings {syncs}, "
+                                 f"without {open_runs['syncs'][name]}")
+        timelines_match(st, f"open {name}")
+        tl = st.telemetry
+        if (tl.data.shape != (OPEN_QUANTA, len(OPEN_FIELDS))
+                or st.app_telemetry.data.shape
+                != (OPEN_QUANTA, OPEN_CAPACITY, len(APP_FIELDS))):
+            raise AssertionError(f"open {name}: ring shapes")
+        _line("rings", f"capacity {OPEN_CAPACITY} {name}: logs equal phase "
+              f"13 bit for bit; host syncs {syncs} as without rings; ring "
+              f"columns queue, active, solo, admissions and departures equal "
+              f"the stats' timelines; real slowdown mean over quanta "
+              f"{float(tl.timeline('real_slowdown_mean').mean())!r}, pred cost mean "
+              f"{float(tl.timeline('pred_cost_mean').mean())!r}; repair dirty "
+              f"{int(tl.timeline('repair_dirty').sum())} in all, 2-opt rounds "
+              f"{int(tl.timeline('two_opt_rounds').sum())}, fallback rows "
+              f"{int(tl.timeline('gn_fallbacks').sum())}, evictions "
+              f"{int(tl.timeline('evictions').sum())}; one run {run_s:.3f} s "
+              f"(first, unwarmed)")
+
+    # What the rings add to a run: kernels a quantum and device time of
+    # the fifo run's first RING_PROFILE_QUANTA quanta without and with
+    # them, under the profiler (a short window: the profiler's own
+    # bookkeeping of a whole run takes tens of seconds).
+    sim = open_runs["sims"]["synpa4 fifo"]
+    q_prof = RING_PROFILE_QUANTA
+    prep = device_sim._prepare_inputs(sim, q_prof)
+    profiled = {}
+    for ringed in (False, True):
+        run = device_sim._grid_race(
+            [sim], [prep], q_prof, prep["j_pad"],
+            (prep["syn_cost"], prep["syn_mean"], prep["syn_stacks"]),
+            LaneDraws([TorchDraws(sim.seed, dev)]), app_telemetry=ringed)
+        run()
+        wall, seen, dev_us = _device_profile(run)
+        profiled[ringed] = (wall * 1e3,
+                            sum(e.count for e in seen) / q_prof,
+                            sum(dev_us(e) for e in seen) / 1e3)
+    _line("profile", f"the open synpa4 fifo run's first {q_prof} quanta "
+          f"under the profiler, without and with both rings: "
+          f"{profiled[False][1]:.1f} and "
+          f"{profiled[True][1]:.1f} kernels a quantum "
+          f"(+{profiled[True][1] - profiled[False][1]:.1f}); device busy "
+          f"{profiled[False][2]:.3f} and {profiled[True][2]:.3f} ms; "
+          f"profiled wall {profiled[False][0]:.3f} and "
+          f"{profiled[True][0]:.3f} ms")
+
+    sims, q = grid_runs["sims"], OPEN_QUANTA
+    for mod in kernel_mods.values():
+        mod.LAUNCHES = 0
+    torch.cuda.synchronize()
+    grid, syncs = counted(lambda: run_device_sim_batched(
+        sims, q, warmup=False, app_telemetry=True))
+    grid_launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+    if grid_launches["pair_score"] != q:
+        raise AssertionError(f"open grid with rings: launches {grid_launches}")
+    for i, st in enumerate(grid):
+        _bitwise_open(st, grid_runs["stats"][i], f"open grid lane {i} with "
+                      "rings")
+        timelines_match(st, f"open grid lane {i}")
+    if syncs != grid_runs["syncs"]:
+        raise AssertionError(f"open grid: syncs with rings {syncs}, without "
+                             f"{grid_runs['syncs']}")
+    single = device_sim.run_device_sim(sims[0], q, warmup=False,
+                                       app_telemetry=True)
+    _same_open_run(grid[0], single, "open grid lane 0 against its single run")
+    worst = _ring_close(grid[0].telemetry.data, single.telemetry.data,
+                        OPEN_FIELDS, "open grid lane 0 against its single run")
+    same = (np.array_equal(grid[0].telemetry.data, single.telemetry.data)
+            and np.array_equal(grid[0].app_telemetry.data,
+                               single.app_telemetry.data))
+    _line("rings", f"the {len(sims)}-lane grid with rings: every lane's logs "
+          f"equal phase 17's bit for bit; host syncs {syncs} as without "
+          f"rings; lane 0's ring against its single run: integer columns "
+          f"equal, float columns within {worst:.3e} relative; bit for bit: "
+          f"{same}; launches {grid_launches}")
+    return total, grid_launches
+
+
+def _checkpointed_run(dev, kernel_mods, open_runs):
+    """Phase 21: phase 13's faulted synpa4 fifo run in segments of
+    ``CKPT_SEG`` quanta with a snapshot after each.  Returns the kernels'
+    launches of the uninterrupted run."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import matching, regression
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.online import device_sim, run_device_sim_checkpointed
+
+    name = "synpa4 fifo combined faults"
+    sim, ref = open_runs["sims"][name], open_runs["stats"][name]
+    q, seg = OPEN_QUANTA, CKPT_SEG
+    counters = ("NEED_FB_SYNCS", "TWO_OPT_SYNCS", "ADMIT_SYNCS",
+                "CKPT_SYNCS")
+    owners = (regression, matching, device_sim, device_sim)
+
+    def counts():
+        return [getattr(m, c) for m, c in zip(owners, counters)]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        for mod in kernel_mods.values():
+            mod.LAUNCHES = 0
+        before = counts()
+        obs_trace.enable()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = run_device_sim_checkpointed(sim, q, seg, f"{tmp}/full")
+        wall_s = time.perf_counter() - t0
+        obs_trace.disable()
+        spans = obs_trace.breakdown()
+        obs_trace.clear()
+        syncs = [a - b for a, b in zip(counts(), before)]
+        launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+        if launches["pair_score"] != q:
+            raise AssertionError(f"checkpointed run: launches {launches}")
+        _bitwise_open(full, ref, "checkpointed run against run_device_sim")
+        if syncs[:3] != open_runs["syncs"][name] or syncs[3] != q // seg:
+            raise AssertionError(f"checkpointed run: syncs {syncs}, "
+                                 f"run_device_sim's {open_runs['syncs'][name]}"
+                                 f" plus {q // seg} snapshots")
+        snap_bytes = sum(
+            os.path.getsize(os.path.join(dp, f))
+            for dp, _, fs in os.walk(f"{tmp}/full/step_{q:08d}") for f in fs)
+
+        # Killed after one segment, then resumed.
+        if run_device_sim_checkpointed(sim, q, seg, f"{tmp}/kill",
+                                       max_segments=1) is not None:
+            raise AssertionError("max_segments=1 did not stop the run")
+        resumed = run_device_sim_checkpointed(sim, q, seg, f"{tmp}/kill")
+        _bitwise_open(resumed, full, "killed and resumed run")
+
+        # The newest snapshot corrupted: resume from the one before.
+        with open(f"{tmp}/full/step_{q:08d}/arrays.npz", "r+b") as f:
+            f.seek(64)
+            f.write(b"\xde\xad\xbe\xef")
+        ck0 = device_sim.CKPT_SYNCS
+        again = run_device_sim_checkpointed(sim, q, seg, f"{tmp}/full")
+        if device_sim.CKPT_SYNCS - ck0 != 1:
+            raise AssertionError("a corrupt newest snapshot: the run did not "
+                                 "resume from the one before")
+        _bitwise_open(again, full, "run resumed past a corrupt snapshot")
+
+        # Wall per quantum, warm, in turns: run_device_sim (one timed run
+        # after its warm run) and the checkpointed run (a fresh directory
+        # each time, so every call writes its three snapshots), its spans
+        # splitting it into the segments (run and copy) and the snapshots.
+        per_q = {"plain": [], "ckpt": []}
+        split = []
+        for k, what in enumerate(("plain", "ckpt", "ckpt", "plain")):
+            if what == "plain":
+                st = sim.run(q, repeats=1)
+            else:
+                obs_trace.enable()
+                st = run_device_sim_checkpointed(sim, q, seg,
+                                                 f"{tmp}/timed{k}")
+                obs_trace.disable()
+                rows = obs_trace.breakdown()
+                obs_trace.clear()
+                split.append(tuple(
+                    rows[nm]["total_us"] / 1e3 / q
+                    for nm in ("device_sim.dispatch",
+                               "device_sim.checkpoint")))
+            per_q[what].append(float(st.policy_s[0]) * 1e3)
+
+        # The segment loop's host syncs, audited: the run's own plus one a
+        # segment, every one counted.
+        loop = device_sim._checkpointed(sim, q, seg, f"{tmp}/audit")
+        torch.cuda.synchronize()
+        c0 = counts()
+        seen = _audited(lambda: loop(None))
+        torch.cuda.synchronize()
+        audit = [a - b for a, b in zip(counts(), c0)]
+    _line("syncs", f"one checkpointed run ({q // seg} segments): {len(seen)} "
+          f"sync warnings, {sum(audit)} syncs counted (fallback, 2-opt, "
+          f"admission {audit[:3]}, snapshots {audit[3]})")
+    if len(seen) != sum(audit) or audit[3] != q // seg:
+        for msg in sorted(set(seen)):
+            _line("syncs", msg[:200])
+        raise AssertionError("uncounted host syncs in the checkpointed run")
+    snap = spans["device_sim.checkpoint"]
+    _line("ckpt", f"capacity {OPEN_CAPACITY} {name}, {q} quanta in segments "
+          f"of {seg}: equal to phase 13's run_device_sim bit for bit; killed "
+          f"after 1 segment and resumed: bit for bit; newest snapshot "
+          f"corrupted: resumed from the one before, bit for bit; first run "
+          f"{wall_s:.3f} s; wall per quantum in turns (plain, checkpointed, "
+          f"checkpointed, plain): run_device_sim {per_q['plain']} ms, "
+          f"checkpointed {per_q['ckpt']} ms, snapshots included, of which "
+          f"segments (run and copy) and snapshots "
+          f"{[tuple(round(x, 3) for x in t) for t in split]} ms; snapshot "
+          f"write {snap['mean_us'] / 1e3:.3f} ms a segment (mean of "
+          f"{snap['count']}), {snap_bytes} bytes each; host syncs {syncs}; "
+          f"launches {launches}")
     return launches
 
 
@@ -2040,15 +2548,7 @@ def main() -> int:
     race = scan_engine.build_race(tables, params, list(policies.values()),
                                   N_QUANTA, dev)
     p_pad = fused_pad(N_APPS)
-    init_mpart = torch.as_tensor(np.stack([
-        scan_engine._initial_mpart(N_APPS, p_pad,
-                                   np.random.default_rng(RACE_SEED + 7919))
-        for _ in policies]), device=dev)
-    init_st = torch.as_tensor(np.stack(
-        [scan_engine._uniform_stacks(s, N_APPS) for s in policies.values()]),
-        device=dev)
-    dt = scan_engine.DeviceTables.build(tables, dev)
-    draws = scan_engine.TorchDraws(RACE_SEED, dev)
+    dt, init_mpart, init_st, draws = _race_inputs(tables, policies, dev)
     torch.cuda.synchronize()
 
     # A deliberate sync, read as the race reads its flags, must be seen.
@@ -2174,19 +2674,34 @@ def main() -> int:
 
     # 12-14. The open system.
     _open_reference(dev, model)
-    open_launches = _open_main_path(dev, model, kernel_mods)
+    open_launches, open_runs = _open_main_path(dev, model, kernel_mods)
     flag_ms, int_ms = _pair_score_flag_times(dev, rng, model, ps_kernel)
 
     # 15-18. The lane-batched grid and the seed-batched race.
     lanes_entry = _pair_score_lanes(dev, rng, model, ps_kernel)
     _open_grid_reference(dev, model)
-    grid_launches = _open_grid_main_path(dev, model, kernel_mods)
+    grid_launches, grid_runs = _open_grid_main_path(dev, model, kernel_mods)
     batched_launches = _batched_race(dev, model, kernel_mods, res, per_q)
+    t_rings = time.perf_counter()
 
+    # 19-21. The telemetry rings and the checkpointed run.
+    ring_launches = _closed_rings(dev, model, kernel_mods, res, counted)
+    t_20 = time.perf_counter()
+    open_ring_launches, grid_ring_launches = _open_rings(
+        dev, kernel_mods, open_runs, grid_runs)
+    t_21 = time.perf_counter()
+    ckpt_launches = _checkpointed_run(dev, kernel_mods, open_runs)
+    rings_s = time.perf_counter() - t_rings
+    phase_s = (t_20 - t_rings, t_21 - t_20, t_rings + rings_s - t_21)
+
+    new_paths = {"race_rings": ring_launches, "open_rings": open_ring_launches,
+                 "grid_rings": grid_ring_launches,
+                 "checkpointed": ckpt_launches}
     kernels[0]["path_launches"] = {
         "race": launches["pair_score"], "open": open_launches["pair_score"],
         "grid": grid_launches["pair_score"],
-        "batched_race": batched_launches["pair_score"]}
+        "batched_race": batched_launches["pair_score"],
+        **{k: v["pair_score"] for k, v in new_paths.items()}}
     kernels[0]["launches"] = sum(kernels[0]["path_launches"].values())
     kernels[0]["idle_flag_ms"] = flag_ms
     kernels[0]["idle_int_ms"] = int_ms
@@ -2196,8 +2711,14 @@ def main() -> int:
                                   "open": open_launches[entry["name"]],
                                   "grid": grid_launches[entry["name"]],
                                   "batched_race":
-                                      batched_launches[entry["name"]]}
-    _line("done", f"{time.perf_counter() - t_start:.1f} s in all")
+                                      batched_launches[entry["name"]],
+                                  **{k: v[entry["name"]]
+                                     for k, v in new_paths.items()}}
+    total_s = time.perf_counter() - t_start
+    _line("done", f"{total_s:.1f} s in all; phases 19-21 {rings_s:.1f} s, "
+          f"{100 * rings_s / (total_s - rings_s):.1f}% added to phases "
+          f"1-18's {total_s - rings_s:.1f} s (19: {phase_s[0]:.1f} s, 20: "
+          f"{phase_s[1]:.1f} s, 21: {phase_s[2]:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -188,7 +188,8 @@ def device_pairs_partner(cost, valid, eps=1e-9,
 
 
 def device_repair_partner(cost, partner, valid, eps=1e-9,
-                          max_rounds: Optional[int] = None):
+                          max_rounds: Optional[int] = None,
+                          with_diag: bool = False):
     """Masked churn repair of a carried partner vector.
 
     The open system's validity mask changes every quantum (arrivals fill
@@ -203,6 +204,11 @@ def device_repair_partner(cost, partner, valid, eps=1e-9,
     invalid vertices pair among themselves by index.  A bounded masked
     2-opt (:func:`device_two_opt_partner`) then ripples the repair
     outward through the kept pairs.
+
+    ``with_diag=True`` returns ``(partner, rounds, n_dirty)``: the 2-opt's
+    round count and the number of dirty vertices re-paired (one of each a
+    lane) — the telemetry ring's churn-repair counters.  The partner is
+    the same either way.
     """
     p = partner.shape[-1]
     idx = torch.arange(p, device=cost.device)
@@ -234,5 +240,8 @@ def device_repair_partner(cost, partner, valid, eps=1e-9,
     repaired = order.gather(-1, mate_pos).gather(
         -1, torch.argsort(order, dim=-1, stable=True))
     repaired = torch.where(keep, pt, repaired)
-    return device_two_opt_partner(cost, repaired, valid, eps=eps,
-                                  max_rounds=max_rounds)
+    out = device_two_opt_partner(cost, repaired, valid, eps=eps,
+                                 max_rounds=max_rounds, with_rounds=with_diag)
+    if with_diag:
+        return out + (nd[..., 0],)
+    return out

@@ -36,6 +36,7 @@ def make_fused_step(
     gn_steps: int = regression.GN_STEPS,
     hb_steps: int = 80,
     lr: float = 1.5,
+    with_diag: bool = False,
 ):
     """The fused per-quantum SYNPA step (Steps 0-2 + cost preparation),
     with the damped Gauss-Newton §5.3 solver (``hb_steps`` is its
@@ -72,6 +73,14 @@ def make_fused_step(
     gathers and the delivery run along each lane's last axis, the solve
     takes every lane's pairs together (one fallback-flag read for all),
     and the cost matrices come from one ``pair_score`` launch.
+
+    ``with_diag=True`` returns ``(cost, st, diag)``: ``diag`` (4,) f32
+    (``(L, 4)`` with lanes) is the solve's diagnostics reduced over the
+    quantum's valid pair solves, in
+    :data:`repro_torch.obs.telemetry.FUSED_DIAG_FIELDS` order —
+    [gn_iters_mean, gn_iters_max, gn_residual_max, gn_fallbacks].  The
+    solve computes them either way, so ``cost`` and ``st`` are the same
+    bit for bit.
     """
     # The kernel's padding sentinel and the matcher's must be the same
     # value, or padded rows could out-compete real edges in the matching.
@@ -109,8 +118,9 @@ def make_fused_step(
         v1 = valid[..., None]
         fi = torch.where(v1, rows_of(frac, take), uniform)
         fj = torch.where(v1, rows_of(frac, p_take), uniform)
-        si, sj = regression._gn_with_fallback(
-            model, fi, fj, gn_steps=gn_steps, hb_steps=hb_steps, lr=lr)
+        si, sj, idiag = regression._gn_with_fallback(
+            model, fi, fj, gn_steps=gn_steps, hb_steps=hb_steps, lr=lr,
+            return_diag=True)
         # Deliver the pair solves by gather: slot s is the solving side of
         # pair rank[s] when first[s] (estimate si), and the partner side of
         # pair rank[partner[s]] when its partner solves (estimate sj).
@@ -136,7 +146,19 @@ def make_fused_step(
         cost = regression.pair_cost_matrix(
             model, st, n_valid=n, valid=valid_mask.contiguous(),
             idle_row=idle_row, p=p, idle_flag=flag)
-        return cost, st
+        if not with_diag:
+            return cost, st
+        # The per-row diagnostics reduced over each lane's valid solves
+        # (masked rows solved placeholder systems).
+        nv = torch.clamp(valid.sum(-1).to(torch.float32), min=1.0)
+        itf = torch.where(valid, idiag.iters.to(torch.float32), 0.0)
+        diag = torch.stack([
+            itf.sum(-1) / nv,
+            itf.amax(-1),
+            torch.where(valid, idiag.residual, 0.0).amax(-1),
+            (valid & idiag.fallback).sum(-1).to(torch.float32),
+        ], -1)
+        return cost, st, diag
 
     def step(counters, partner, prev_st, masks, idle):
         if counters.dim() == 3:
@@ -144,8 +166,8 @@ def make_fused_step(
         # One lane: the same step on a lane axis of 1.
         if isinstance(idle, torch.Tensor):
             idle = idle.reshape(1)
-        cost, st = lanes_step(counters[None], partner[None], prev_st[None],
-                              masks[None], idle)
-        return cost[0], st[0]
+        out = lanes_step(counters[None], partner[None], prev_st[None],
+                         masks[None], idle)
+        return tuple(o[0] for o in out)
 
     return step

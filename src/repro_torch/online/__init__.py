@@ -12,7 +12,10 @@ context, run to completion and depart, while SYNPA re-pairs every quantum.
 * :func:`run_device_sim_batched` — a scenario grid (seeds, loads,
                                admission rules, fault profiles) as one
                                lane-batched run
-                               (:mod:`repro_torch.online.batch_sim`).
+                               (:mod:`repro_torch.online.batch_sim`);
+* :func:`run_device_sim_checkpointed` — a long run in segments, with a
+                               snapshot at each segment's end and resume
+                               after a kill.
 """
 
 from repro_torch.online.admission import SynergyAdmission
@@ -29,6 +32,7 @@ from repro_torch.online.faults import (
     FaultSchedule,
 )
 from repro_torch.online.batch_sim import run_device_sim_batched
+from repro_torch.online.device_sim import run_device_sim_checkpointed
 from repro_torch.online.sim import ClusterSim
 
 __all__ = [
@@ -43,4 +47,5 @@ __all__ = [
     "TraceArrivals",
     "presample",
     "run_device_sim_batched",
+    "run_device_sim_checkpointed",
 ]

@@ -41,6 +41,10 @@ of scenario i sees.  They cost two small launches a lane a quantum.
 
 Timing: the lanes of one run are indivisible, so per-lane ``policy_s``
 is the grid's median wall over ``L * n_quanta``: the cost a scenario.
+
+Telemetry: each lane's rings are the rows of its own lane, so they equal
+its single run's bit for bit; per-lane means divide by that lane's own
+active count.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from typing import List, Sequence
 
 import numpy as np
 
+from repro_torch.obs import trace as obs_trace
 from repro_torch.online.device_sim import (
     DEVICE_SIM_KINDS,
     _lane_stats,
@@ -138,17 +143,17 @@ def run_device_sim_batched(sims: Sequence, n_quanta: int, repeats: int = 1,
     ``warmup`` follow ``run_device_sim``; per-lane ``policy_s`` spreads
     the grid's median wall over ``L * n_quanta``.  ``draws`` (a
     :class:`repro_torch.smt.scan_engine.LaneDraws` or alike) defaults to
-    one ``TorchDraws`` a lane keyed from its sim's seed.  Telemetry rings
-    are not ported yet.
+    one ``TorchDraws`` a lane keyed from its sim's seed.  ``telemetry``
+    and ``app_telemetry`` attach each lane's rings to its stats, each
+    equal bit for bit to the ring of its scenario run alone.
     """
-    if telemetry or app_telemetry:
-        raise NotImplementedError(
-            "telemetry rings of the open system are not ported yet "
-            "(ROADMAP, open item 1)")
     sims = list(sims)
     preps, j_pad, syn_tables, draws = _grid(sims, n_quanta, draws)
     fetched, wall = _run_lanes(sims, preps, n_quanta, j_pad, syn_tables,
-                               repeats, warmup, draws)
+                               repeats, warmup, draws, telemetry=telemetry,
+                               app_telemetry=app_telemetry)
     per_quantum = wall / max(len(sims) * n_quanta, 1)
-    return [_lane_stats(sim, prep, n_quanta, fetched, i, per_quantum)
-            for i, (sim, prep) in enumerate(zip(sims, preps))]
+    with obs_trace.span("device_sim.stats", lanes=len(sims)):
+        return [_lane_stats(sim, prep, n_quanta, fetched, i, per_quantum,
+                            telemetry=telemetry, app_telemetry=app_telemetry)
+                for i, (sim, prep) in enumerate(zip(sims, preps))]

@@ -60,6 +60,23 @@ Every tensor of the loop carries a leading lane axis: a single run is a
 grid of one lane, and :func:`repro_torch.online.batch_sim.
 run_device_sim_batched` runs a grid of scenarios through the same loop,
 each quantum's operations launched once for all lanes.
+
+Telemetry.  ``telemetry=True`` records one ``OPEN_FIELDS`` vector a quantum
+and ``app_telemetry=True`` one ``APP_FIELDS`` row a context
+(:mod:`repro_torch.obs.telemetry`), on the device, fetched once after the
+run.  The ring reads the quantum's own slowdown ratios and the policy's
+cost matrix before the state moves on, writes nothing back and reads no
+flag on the host: a run with rings is the run without them, bit for bit.
+As in the reference, the ``departures`` and fault columns are zero on the
+device and filled on the host from the fetched logs and the fault
+schedule.
+
+Checkpoints.  :func:`run_device_sim_checkpointed` runs the same loop in
+segments of quanta, snapshotting the whole state (and the per-quantum
+outputs so far) at each segment's end through
+:mod:`repro_torch.checkpoint`; a run killed between segments resumes from
+its newest valid snapshot and ends bit for bit as the run left alone, and
+as :func:`run_device_sim`.
 """
 
 from __future__ import annotations
@@ -72,6 +89,15 @@ import torch
 
 from repro_torch.core import isc, matching
 from repro_torch.core.synpa import fused_pad, make_fused_step
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.telemetry import (
+    APP_FIELDS,
+    APP_ST_WIDTH,
+    FAULT_FIELDS,
+    OPEN_FIELDS,
+    AppTelemetryLog,
+    TelemetryLog,
+)
 from repro_torch.online.arrivals import presample
 from repro_torch.online.faults import RETRY_NEVER
 from repro_torch.smt.metrics import OnlineStats
@@ -92,6 +118,16 @@ DEVICE_SIM_KINDS = ("synpa", "adjacent")
 #: Host reads of synergy admission's trip count (once a quantum under
 #: ``admission="synergy"``): the open loop's own device-to-host sync.
 ADMIT_SYNCS = 0
+
+#: Host round trips of :func:`run_device_sim_checkpointed`: one a segment,
+#: the snapshot's single device-to-host copy.
+CKPT_SYNCS = 0
+
+#: The per-quantum series of a run, in output order, as snapshots name
+#: them; a faulted run adds ``_FAULT_YS``, rings ``telemetry`` and
+#: ``app_telemetry``.
+_YS = ("queue_depth", "n_active", "n_solo")
+_FAULT_YS = ("evictions", "requeues")
 
 
 class _OpenCarry(NamedTuple):
@@ -153,10 +189,12 @@ class _Inputs(NamedTuple):
 
 
 def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
-                   admission: str, faults: bool, device):
+                   admission: str, faults: bool, device,
+                   telemetry: bool = False, app_telemetry: bool = False):
     """The per-quantum ``body(inp, state, draws, q) -> (state, outs)``, the
-    initial state ``carry0(lanes)`` and ``unpack(state, outs)``, which
-    stacks the per-quantum outputs and slices the logs to their jobs.
+    initial state ``carry0(lanes)`` and ``unpack(state, cols)``, which
+    takes the stacked per-quantum outputs (:func:`_stack_outs`) and slices
+    the logs to their jobs.
 
     Every tensor has a leading lane axis; a single run is one lane.
     ``admission`` is ``"fifo"``, ``"synergy"`` or ``"lane"``: the last
@@ -166,7 +204,12 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
     With ``faults`` (any lane faulted) the fault path runs, its knobs
     read from ``cfg``, and unfaulted lanes ride an
     all-up schedule at unit speed (multiplying by exactly 1.0 changes no
-    value)."""
+    value).
+
+    ``telemetry`` appends each quantum's ``OPEN_FIELDS`` vector, (L, 21),
+    to the outputs, and ``app_telemetry`` (which implies it) its
+    ``APP_FIELDS`` block, (L, C, 9)."""
+    telemetry = telemetry or app_telemetry
     if admission not in ("fifo", "synergy", "lane"):
         raise ValueError(f"unknown admission {admission!r}")
     lane_mode = admission == "lane"
@@ -183,7 +226,8 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
                              "fitted model")
         if spec.matcher not in ("refine", "full"):
             raise ValueError(f"unknown matcher {spec.matcher!r}")
-        fstep = make_fused_step(spec.method, spec.model)
+        fstep = make_fused_step(spec.method, spec.model,
+                                with_diag=telemetry)
         ncat = spec.method.n_categories
     else:
         fstep = None
@@ -250,7 +294,8 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
     def open_quantum(dt, aid, active, phase_idx, phase_left, progress,
                      target, partner, draws, q, speed=None):
         """Membership-masked quantum: departures, no relaunch.  ``speed``
-        (straggler capability) scales retirement only."""
+        (straggler capability) scales retirement only.  With rings on it
+        also returns each context's slowdown ratio (0 where empty)."""
         aid_safe = torch.clamp(aid, min=0)
         nph = dt.n_phases[aid_safe]
         ph = phase_idx % nph
@@ -281,7 +326,11 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
         new_left = torch.where(trans, torch.clamp(drawn, min=1.0),
                                torch.where(surv, left, phase_left))
         new_idx = torch.where(trans, nidx, phase_idx)
-        return counters, after, done, frac, new_idx, new_left
+        out = (counters, after, done, frac, new_idx, new_left)
+        if telemetry:
+            solo_cpi = dt.comps[aid_safe, ph].sum(-1)
+            out += (torch.where(active, cpi / solo_cpi, 0.0),)
+        return out
 
     # --------------------------------------------------------------- body
     def body(inp: _Inputs, state, draws, q: int):
@@ -394,6 +443,10 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
         if spec.kind == "adjacent":
             partner = adjacent_partner(active, n_active)
             mpart = carry.mpart
+            if telemetry:
+                # No predictor, no matcher: the policy fields are zero.
+                pol = torch.zeros(active.shape[:-1] + (7,), device=device)
+                pred_ctx = torch.zeros(active.shape, device=device)
         else:
             solve = carry.ran & (carry.partner_prev != idx)
             solo_m = carry.ran & (carry.partner_prev == idx)
@@ -403,24 +456,44 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
             else:
                 fresh = torch.zeros_like(took) if use_hints else took
             masks = torch.stack([solve, solo_m, active, fresh], dim=-2)
-            cost, st = fstep(carry.counters, carry.partner_prev, st, masks,
-                             odd.reshape(-1))
+            cost, st, *fdiag = fstep(carry.counters, carry.partner_prev, st,
+                                     masks, odd.reshape(-1))
             valid_p = torch.cat([active, odd,
                                  pad_false.expand(active.shape[0], -1)], -1)
             if spec.matcher == "full":
                 mpart = matching.device_pairs_partner(
                     cost, valid_p, eps=spec.refine_eps,
-                    max_rounds=full_budget)
+                    max_rounds=full_budget, with_rounds=telemetry)
+                if telemetry:
+                    # A full re-match rebuilds every pair: the whole valid
+                    # population counts as dirty.
+                    mpart, rounds = mpart
+                    dirty = valid_p.sum(-1)
             else:
                 mpart = matching.device_repair_partner(
                     cost, carry.mpart, valid_p, eps=spec.refine_eps,
-                    max_rounds=spec.refine_rounds)
+                    max_rounds=spec.refine_rounds, with_diag=telemetry)
+                if telemetry:
+                    mpart, rounds, dirty = mpart
+            if telemetry:
+                # Mean predicted cost per committed pair (each pair's entry
+                # appears twice over n_valid / 2 pairs), and each
+                # context's share of its pair: half its entry.
+                n_valid = torch.clamp(valid_p.sum(-1).to(torch.float32),
+                                      min=1.0)
+                gathered = torch.where(
+                    valid_p, cost.gather(-1, mpart[..., None])[..., 0], 0.0)
+                pol = torch.cat([torch.stack(
+                    [gathered.sum(-1) / n_valid, dirty.to(torch.float32),
+                     rounds.to(torch.float32)], -1), fdiag[0]], -1)
+                pred_ctx = gathered[..., :c] * 0.5
             partner = torch.where(active, _machine_partner_of(mpart, c), idx)
 
         # 4. One membership-masked machine quantum, 5. departures.
-        counters, after, done, frac, phase_idx, phase_left = open_quantum(
-            dt, app_id, active, phase_idx, phase_left, progress, target,
-            partner, draws, q, speed=speedq if faults else None)
+        counters, after, done, frac, phase_idx, phase_left, *ratio = \
+            open_quantum(dt, app_id, active, phase_idx, phase_left, progress,
+                         target, partner, draws, q,
+                         speed=speedq if faults else None)
         finish_q = carry.finish_q.scatter(
             -1, torch.where(done, job_at, j_pad), q + frac)
         n_solo = (active & (partner == idx)).sum(-1)
@@ -444,6 +517,36 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
         if faults:
             outs = outs + (n_evict, n_requeue)
             fc = _FaultCarry(retries=retries, retry_at=retry_at, saved=saved)
+        if telemetry:
+            ratio = ratio[0]
+            f32 = lambda v: v.to(torch.float32)  # noqa: E731
+            lanes = active.shape[:-1]
+            # Departures and the fault columns are filled on the host.
+            outs = outs + (torch.cat([
+                torch.stack([
+                    f32(head[..., 0]), f32(tail[..., 0]),
+                    f32(queue_depth[..., 0]), f32(took_f.sum(-1)),
+                    torch.zeros(lanes, device=device),
+                    f32(n_active[..., 0]), f32(n_solo),
+                    ratio.sum(-1) / torch.clamp(f32(n_active[..., 0]),
+                                                min=1.0),
+                    ratio.amax(-1)], -1),
+                pol,
+                torch.zeros(lanes + (len(FAULT_FIELDS),), device=device),
+            ], -1),)
+        if app_telemetry:
+            co = active & active.gather(-1, partner) & (partner != idx)
+            partner_app = torch.where(co, app_id.gather(-1, partner), -1)
+            pred_col = torch.where(co, pred_ctx, 0.0)
+            resid = torch.where(pred_col > 0.0, pred_col - ratio, 0.0)
+            st4 = st[..., :APP_ST_WIDTH]
+            if st4.shape[-1] < APP_ST_WIDTH:
+                st4 = torch.cat([st4, st4.new_zeros(
+                    st4.shape[:-1] + (APP_ST_WIDTH - st4.shape[-1],))], -1)
+            st4 = torch.where(active[..., None], st4, 0.0)
+            outs = outs + (torch.cat([torch.stack([
+                f32(app_id), f32(partner_app), pred_col, ratio, resid], -1),
+                st4], -1),)
         return (new, fc), outs
 
     def carry0(lanes: int):
@@ -474,36 +577,64 @@ def _make_open_ops(spec: ScanPolicy, params, capacity: int, j_pad: int,
         ) if faults else None
         return ocarry, fc
 
-    def unpack(state, outs):
+    def unpack(state, cols):
+        """The run's logs from its final state and stacked outputs, as
+        tensors or, for a state and outputs fetched to the host, numpy."""
         ocarry, fc = state
-        cols = [torch.stack(col, -1) for col in zip(*outs)]
         res = (ocarry.admit_q, ocarry.finish_q[..., :j_pad]) + tuple(cols[:3])
         if faults:
             res = res + (fc.retries[..., :j_pad], fc.retry_at[..., :j_pad]) \
                 + tuple(cols[3:5])
-        return res
+        return res + tuple(cols[len(cols) - telemetry - app_telemetry:])
 
     return body, carry0, unpack
 
 
+def _stack_outs(outs):
+    """A span of quanta's outputs, one column each with the quanta on
+    axis 1: the (L,) series as (L, Q), the rings as (L, Q, ...)."""
+    return [torch.stack(col, 1) for col in zip(*outs)]
+
+
 def _build_race(spec: ScanPolicy, params, capacity: int, n_quanta: int,
-                j_pad: int, admission: str, faults=False, device=None):
+                j_pad: int, admission: str, faults=False, device=None,
+                telemetry: bool = False, app_telemetry: bool = False,
+                segment: bool = False):
     """One open-system run over a grid of lanes: ``race(inputs, draws)``
     -> ``(admit_q (L, J), finish_q (L, J), queue_depth (L, Q), n_active
     (L, Q), n_solo (L, Q))`` on the device, and with ``faults``
     also ``retries (L, J), retry_at (L, J), evictions (L, Q), requeues
-    (L, Q)``.  ``draws`` gives each quantum's numbers for all lanes (a
-    :class:`repro_torch.smt.scan_engine.LaneDraws`)."""
-    body, carry0, unpack = _make_open_ops(spec, params, capacity, j_pad,
-                                          admission, faults, device)
+    (L, Q)``, then the ``telemetry`` ring (L, Q, 21) and the
+    ``app_telemetry`` ring (L, Q, C, 9).  ``draws`` gives each quantum's
+    numbers for all lanes (a :class:`repro_torch.smt.scan_engine.
+    LaneDraws`).
 
-    def race(inputs: _Inputs, draws):
-        state = carry0(inputs.job_pool.shape[0])
+    ``segment=True`` returns the checkpointed form instead,
+    ``race(inputs, draws, state, q0) -> (state, cols)``: quanta ``q0 ..
+    q0 + n_quanta - 1`` (``n_quanta`` is then the segment's length) from
+    ``state`` (the initial state when None), with the state at the end and
+    the segment's stacked outputs; ``race.unpack(state, cols)`` gives the
+    logs.  The quantum index keys the draws, the arrivals and the fault
+    schedule, so segments of one run are that run."""
+    body, carry0, unpack = _make_open_ops(
+        spec, params, capacity, j_pad, admission, faults, device,
+        telemetry=telemetry, app_telemetry=app_telemetry)
+
+    def run(inputs, draws, state, q0):
+        if state is None:
+            state = carry0(inputs.job_pool.shape[0])
         outs = []
-        for q in range(n_quanta):
+        for q in range(q0, q0 + n_quanta):
             state, out = body(inputs, state, draws, q)
             outs.append(out)
-        return unpack(state, outs)
+        return state, _stack_outs(outs)
+
+    if segment:
+        run.unpack = unpack
+        return run
+
+    def race(inputs, draws):
+        return unpack(*run(inputs, draws, None, 0))
 
     return race
 
@@ -645,43 +776,79 @@ def _lane_mode(sims) -> str:
     return rules.pop() if len(rules) == 1 else "lane"
 
 
-def _grid_race(sims, preps, n_quanta: int, j_pad: int, syn_tables, draws):
+def _grid_race(sims, preps, n_quanta: int, j_pad: int, syn_tables, draws,
+               telemetry: bool = False, app_telemetry: bool = False,
+               segment: bool = False):
     """A grid of lanes, built and committed: ``run()`` runs the whole
-    horizon once and returns the logs on the device."""
+    horizon once and returns the logs on the device (with ``segment``,
+    ``run(state, q0)`` runs one segment; see :func:`_build_race`)."""
     base = sims[0]
     faulted = any(prep["fcfg"] is not None for prep in preps)
     race = _build_race(base.policy, base.machine.params, base.capacity,
                        n_quanta, j_pad, _lane_mode(sims),
-                       faulted, base.device)
-    inputs = _commit(sims, preps, j_pad, n_quanta, syn_tables, base.device)
+                       faulted, base.device, telemetry=telemetry,
+                       app_telemetry=app_telemetry, segment=segment)
+    with obs_trace.span("device_sim.commit", lanes=len(sims)):
+        inputs = _commit(sims, preps, j_pad, n_quanta, syn_tables,
+                         base.device)
+    if segment:
+        def run(state, q0):
+            return race(inputs, draws, state, q0)
+        run.unpack = race.unpack
+        return run
     return lambda: race(inputs, draws)
 
 
 def _run_lanes(sims, preps, n_quanta: int, j_pad: int, syn_tables,
-               repeats: int, warmup: bool, draws):
+               repeats: int, warmup: bool, draws, telemetry: bool = False,
+               app_telemetry: bool = False):
     """Run a grid of lanes: an untimed warm run when ``warmup``, then
     ``repeats`` timed runs, each bracketed by ``torch.cuda.synchronize()``
     on a GPU.  Returns the fetched logs (numpy, lane axis first) and the
     median wall of the timed runs."""
     device = sims[0].device
-    run = _grid_race(sims, preps, n_quanta, j_pad, syn_tables, draws)
+    run = _grid_race(sims, preps, n_quanta, j_pad, syn_tables, draws,
+                     telemetry=telemetry, app_telemetry=app_telemetry)
     out = None
     if warmup:
         out = run()
+        obs_trace.dispatch_cost("device_sim.race", run, device)
     walls = []
     for _ in range(max(int(repeats), 1)):
         _sync(device)
         t0 = time.perf_counter()
-        out = run()
-        _sync(device)
+        with obs_trace.span("device_sim.dispatch", lanes=len(sims),
+                            quanta=n_quanta):
+            out = run()
+            _sync(device)
         walls.append(time.perf_counter() - t0)
     return tuple(o.cpu().numpy() for o in out), float(np.median(walls))
 
 
+def _fetch_host(tensors):
+    """Tensors to numpy arrays through ONE device-to-host copy: their
+    bytes packed into one buffer on the device, fetched, and cut apart on
+    the host."""
+    flat = [t.detach().contiguous().reshape(-1).view(torch.uint8)
+            for t in tensors]
+    host = torch.cat(flat).cpu().numpy() if flat else np.zeros(0, np.uint8)
+    out, at = [], 0
+    for t, f in zip(tensors, flat):
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(host[at:at + f.numel()].copy().view(dtype)
+                   .reshape(tuple(t.shape)))
+        at += f.numel()
+    return out
+
+
 def _lane_stats(sim, prep, n_quanta: int, fetched, i: int,
-                per_quantum: float) -> OnlineStats:
-    """Lane ``i``'s :class:`OnlineStats` from a grid's fetched logs; a
-    faulted lane's job-conservation invariant is checked here."""
+                per_quantum: float, telemetry: bool = False,
+                app_telemetry: bool = False) -> OnlineStats:
+    """Lane ``i``'s :class:`OnlineStats` from a grid's fetched logs (the
+    rings, when the run recorded them, last); a faulted lane's
+    job-conservation invariant is checked here, and its ring's fault
+    columns filled from the schedule and its counts."""
+    telemetry = telemetry or app_telemetry
     params = sim.machine.params
     j = prep["j"]
     arrive_q, pids = prep["arrive_q"], prep["pids"]
@@ -714,6 +881,20 @@ def _lane_stats(sim, prep, n_quanta: int, fetched, i: int,
     if faulted:
         _attach_fault_stats(stats, prep, retries, retry_at, evictions,
                             requeues)
+    rings = fetched[len(fetched) - telemetry - app_telemetry:]
+    if telemetry:
+        # Filled here, as the reference fills them: departures are
+        # ``bincount(floor(finish_q))``, the fault columns schedule data
+        # and the run's eviction and requeue counts.
+        ring = np.array(rings[0][i], np.float64)
+        ring[:, OPEN_FIELDS.index("departures")] = stats.departures
+        if faulted:
+            for nm in FAULT_FIELDS:
+                ring[:, OPEN_FIELDS.index(nm)] = getattr(stats, nm)
+        stats.telemetry = TelemetryLog(OPEN_FIELDS, ring, policy=name)
+    if app_telemetry:
+        stats.app_telemetry = AppTelemetryLog(APP_FIELDS, rings[1][i],
+                                              policy=name)
     return stats
 
 
@@ -729,25 +910,29 @@ def run_device_sim(sim, n_quanta: int, repeats: int = 1, warmup: bool = True,
     machine and bookkeeping together, spread over the horizon).  Every run
     is the same (the draws are keyed per quantum).  ``draws`` defaults to
     :class:`repro_torch.smt.scan_engine.TorchDraws` keyed from the sim's
-    seed.  Telemetry rings are not ported yet.
+    seed.
+
+    ``telemetry=True`` attaches the ``OPEN_FIELDS`` ring as
+    ``OnlineStats.telemetry``, ``app_telemetry=True`` (which implies it)
+    also the ``APP_FIELDS`` ring as ``OnlineStats.app_telemetry``; the run
+    is the run without them, bit for bit.
 
     The run is a grid of one lane; to run many scenarios (seeds, loads,
     admission rules, fault profiles) use
     :func:`repro_torch.online.batch_sim.run_device_sim_batched`, which
     runs them all at once, each lane equal to its run here.
     """
-    if telemetry or app_telemetry:
-        raise NotImplementedError(
-            "telemetry rings of the open system are not ported yet "
-            "(ROADMAP, open item 1)")
     prep = _prepare_inputs(sim, n_quanta)
     draws = draws if draws is not None else TorchDraws(sim.seed, sim.device)
     fetched, wall = _run_lanes(
         [sim], [prep], n_quanta, prep["j_pad"],
         (prep["syn_cost"], prep["syn_mean"], prep["syn_stacks"]), repeats,
-        warmup, LaneDraws([draws]))
-    return _lane_stats(sim, prep, n_quanta, fetched, 0,
-                       wall / max(n_quanta, 1))
+        warmup, LaneDraws([draws]), telemetry=telemetry,
+        app_telemetry=app_telemetry)
+    with obs_trace.span("device_sim.stats"):
+        return _lane_stats(sim, prep, n_quanta, fetched, 0,
+                           wall / max(n_quanta, 1), telemetry=telemetry,
+                           app_telemetry=app_telemetry)
 
 
 def _attach_fault_stats(stats: OnlineStats, prep, retries, retry_at,
@@ -769,3 +954,148 @@ def _attach_fault_stats(stats: OnlineStats, prep, retries, retry_at,
     # In flight = admitted but neither completed, dropped, nor waiting.
     stats.n_in_flight = (stats.n_admitted - stats.n_completed
                          - stats.n_dropped - stats.n_retry_waiting)
+
+
+def _fingerprint(sim, n_quanta: int, seg_len: int, j_pad: int,
+                 telemetry: bool, app_telemetry: bool) -> dict:
+    """The configuration a snapshot must match to be resumed: the
+    reference's fingerprint plus ``engine="torch"``, so that a snapshot of
+    the other package is refused by it and not by a shape error."""
+    return {
+        "n_quanta": int(n_quanta), "seg_len": int(seg_len),
+        "seed": int(sim.seed), "capacity": int(sim.capacity),
+        "j_pad": int(j_pad), "admission": sim.admission,
+        "kind": sim.policy.kind, "telemetry": bool(telemetry),
+        "faulted": sim.faults is not None,
+        "app_telemetry": bool(app_telemetry), "engine": "torch",
+    }
+
+
+def _checkpointed(sim, n_quanta: int, seg_len: int, ckpt_dir: str,
+                  keep: int = 3, resume: bool = True,
+                  telemetry: bool = False, app_telemetry: bool = False,
+                  draws=None):
+    """:func:`run_device_sim_checkpointed` up to its segment loop: the
+    inputs committed and the state restored (or initial).  Returns
+    ``loop(max_segments)``, which runs the remaining segments (each one
+    device-to-host copy, counted in :data:`CKPT_SYNCS`, and one snapshot)
+    and returns the stats, or None when it stopped at ``max_segments``."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    telemetry = telemetry or app_telemetry
+    if not (seg_len > 0 and n_quanta % seg_len == 0):
+        raise AssertionError(
+            f"horizon {n_quanta} must be a whole number of segments "
+            f"(seg_len={seg_len}): padding jobs arrive at the horizon")
+    prep = _prepare_inputs(sim, n_quanta)
+    j_pad = prep["j_pad"]
+    faulted = prep["fcfg"] is not None
+    draws = draws if draws is not None else TorchDraws(sim.seed, sim.device)
+    run = _grid_race([sim], [prep], seg_len, j_pad,
+                     (prep["syn_cost"], prep["syn_mean"],
+                      prep["syn_stacks"]), LaneDraws([draws]),
+                     telemetry=telemetry, app_telemetry=app_telemetry,
+                     segment=True)
+    names = (_YS + (_FAULT_YS if faulted else ())
+             + ("telemetry",) * telemetry
+             + ("app_telemetry",) * app_telemetry)
+    want = _fingerprint(sim, n_quanta, seg_len, j_pad, telemetry,
+                        app_telemetry)
+    mgr = CheckpointManager(ckpt_dir, keep=keep)
+    # The state on the device, its host copy (a snapshot's tree) and the
+    # per-quantum outputs so far, at quantum q0.
+    state, tree, q0 = None, None, 0
+    if resume:
+        step, tree, meta = mgr.restore_latest()
+        if step is not None:
+            got = {k: meta.get(k) for k in want}
+            if got != want:
+                raise AssertionError(f"checkpoint config mismatch under "
+                                     f"{ckpt_dir}: {got} vs {want}")
+            # One copy to the device a resume, outside the loop.
+            def on_device(cls, part):
+                return cls(**{k: torch.as_tensor(v, device=sim.device)
+                              for k, v in tree[part].items()})
+
+            state = (on_device(_OpenCarry, "ocarry"),
+                     on_device(_FaultCarry, "fcarry") if faulted else None)
+            q0 = step
+
+    def loop(max_segments: Optional[int] = None):
+        global CKPT_SYNCS
+        nonlocal state, tree, q0
+        t0 = time.perf_counter()
+        segs = 0
+        while q0 < n_quanta:
+            if max_segments is not None and segs >= max_segments:
+                return None      # stopped on purpose; resume later
+            with obs_trace.span("device_sim.dispatch", q0=q0,
+                                segment=True):
+                state, cols = run(state, q0)
+                carried = [t for part in state if part is not None
+                           for t in part]
+                CKPT_SYNCS += 1
+                host = _fetch_host(carried + cols)
+            n_oc = len(_OpenCarry._fields)
+            seg = host[len(carried):]
+            ys = seg if tree is None else [
+                np.concatenate([tree["ys"][nm], y], 1)
+                for nm, y in zip(names, seg)]
+            tree = {"ocarry": dict(zip(_OpenCarry._fields, host[:n_oc])),
+                    "ys": dict(zip(names, ys))}
+            if faulted:
+                tree["fcarry"] = dict(zip(_FaultCarry._fields,
+                                          host[n_oc:len(carried)]))
+            q0 += seg_len
+            segs += 1
+            with obs_trace.span("device_sim.checkpoint", step=q0):
+                mgr.save(q0, tree, meta=want)
+        per_quantum = (time.perf_counter() - t0) / max(segs * seg_len, 1)
+        host_state = (_OpenCarry(**tree["ocarry"]),
+                      _FaultCarry(**tree["fcarry"]) if faulted else None)
+        ys = [tree["ys"][nm] for nm in names]
+        with obs_trace.span("device_sim.stats"):
+            return _lane_stats(sim, prep, n_quanta,
+                               run.unpack(host_state, ys), 0, per_quantum,
+                               telemetry=telemetry,
+                               app_telemetry=app_telemetry)
+
+    return loop
+
+
+def run_device_sim_checkpointed(sim, n_quanta: int, seg_len: int,
+                                ckpt_dir: str, keep: int = 3,
+                                resume: bool = True,
+                                telemetry: bool = False,
+                                app_telemetry: bool = False,
+                                max_segments: Optional[int] = None,
+                                draws=None) -> Optional[OnlineStats]:
+    """:func:`run_device_sim` in ``n_quanta / seg_len`` segments, with a
+    snapshot at every segment's end: the whole state, the fault state of
+    a faulted run and the per-quantum outputs so far (rings included),
+    written through :class:`repro_torch.checkpoint.CheckpointManager`
+    (``keep`` newest kept) under ``ckpt_dir``.
+
+    A run killed between segments resumes from its newest valid snapshot
+    (corrupt or partial ones are skipped and removed) and ends bit for
+    bit as the run left alone: the jobs and the fault schedule are
+    functions of the seed, and the draws, the arrivals and the schedule
+    are keyed by the quantum's index in the horizon.  The segments run the
+    loop of :func:`run_device_sim`, whose finish log already lives in the
+    state, so on one device the two are equal bit for bit, finish quanta
+    included.
+
+    Each segment adds one host round trip (the snapshot's single
+    device-to-host copy, counted in :data:`CKPT_SYNCS`) to the loop's own.
+    ``n_quanta`` must be a whole number of segments (padding jobs arrive
+    at ``n_quanta``).  ``max_segments`` stops after that many segments
+    this call and returns None; ``resume=False`` ignores existing
+    snapshots; a snapshot of another configuration (or of the reference
+    package) is refused with an ``AssertionError`` saying "mismatch".
+    ``policy_s`` is the wall per quantum of this call's segments, the
+    snapshots included.  ``draws`` defaults as in :func:`run_device_sim`.
+    """
+    loop = _checkpointed(sim, n_quanta, seg_len, ckpt_dir, keep=keep,
+                         resume=resume, telemetry=telemetry,
+                         app_telemetry=app_telemetry, draws=draws)
+    return loop(max_segments)

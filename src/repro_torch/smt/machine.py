@@ -351,6 +351,12 @@ class ThroughputResult:
     total_retired: float            # machine-wide retired instructions
     mean_true_slowdown: float       # ground-truth pairing quality (lower=better)
     machine_s_per_quantum: float    # race wall-time per quantum (all policies)
+    #: Per-quantum telemetry ring (``repro_torch.obs.telemetry.
+    #: TelemetryLog``) when the race ran with ``telemetry=True``.
+    telemetry: Optional[object] = None
+    #: Per-application ring (``AppTelemetryLog``) when it ran with
+    #: ``app_telemetry=True``.
+    app_telemetry: Optional[object] = None
 
     @property
     def ipc_geomean(self) -> float:

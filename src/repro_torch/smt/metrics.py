@@ -79,6 +79,12 @@ class OnlineStats:
     arrivals: Optional[np.ndarray] = None     # (Q,) jobs arrived
     admissions: Optional[np.ndarray] = None   # (Q,) jobs admitted
     departures: Optional[np.ndarray] = None   # (Q,) jobs departed
+    #: Device telemetry ring (``repro_torch.obs.telemetry.TelemetryLog``)
+    #: when the run was launched with ``telemetry=True``; None otherwise.
+    telemetry: Optional[object] = None
+    #: Per-application ring (``AppTelemetryLog``) when launched with
+    #: ``app_telemetry=True``; None otherwise.
+    app_telemetry: Optional[object] = None
     #: Fault timelines and scalars (``repro_torch.online.faults``); all
     #: None / 0 when the run had no FaultProfile.  failures/recoveries/
     #: straggling are fault-schedule data; evictions/requeues are counted
@@ -164,8 +170,9 @@ class OnlineStats:
 
     def timelines(self) -> Dict[str, np.ndarray]:
         """Named per-quantum series of the run: ``queue_depth``, ``active``
-        and ``solo_quanta``, and every traffic and fault series the run
-        recorded."""
+        and ``solo_quanta``, every traffic and fault series the run
+        recorded, and every telemetry field under a ``tlm_`` prefix when
+        the run recorded the ring."""
         out: Dict[str, np.ndarray] = {
             "queue_depth": np.asarray(self.queue_depth),
             "active": np.asarray(self.active),
@@ -176,6 +183,9 @@ class OnlineStats:
             v = getattr(self, name)
             if v is not None:
                 out[name] = np.asarray(v)
+        if self.telemetry is not None:
+            for f in self.telemetry.fields:
+                out[f"tlm_{f}"] = self.telemetry.timeline(f)
         return out
 
     # ------------------------------------------------------- device logs

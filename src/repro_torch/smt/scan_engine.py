@@ -35,6 +35,14 @@ lane axis, each quantum's operations run once for all lanes, and a
 quantum, the policy steps and the race itself are written over any
 leading lane axes, so :func:`run_quanta_scan` is the same code without
 one.
+
+Telemetry.  ``telemetry=True`` records one ``CLOSED_FIELDS`` vector a
+quantum (:mod:`repro_torch.obs.telemetry`), ``app_telemetry=True`` also one
+``APP_FIELDS`` row a slot, on the device; the rings are stacked after the
+loop and fetched with the results.  They read the quantum's own slowdown
+ratios and the policy's cost matrix, write nothing back, and read no flag
+on the host, so a race with rings is the race without them, bit for bit,
+with the same host syncs.
 """
 
 from __future__ import annotations
@@ -49,7 +57,23 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import isc, matching
 from repro_torch.core.synpa import fused_pad, make_fused_step
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.telemetry import (
+    APP_FIELDS,
+    APP_ST_WIDTH,
+    CLOSED_FIELDS,
+    AppTelemetryLog,
+    TelemetryLog,
+)
 from repro_torch.smt.machine import MachineParams, PhaseTables, ThroughputResult
+
+#: Version of the port's own draw streams (:class:`TorchDraws`: a
+#: ``torch.Generator`` re-seeded per (purpose, quantum[, policy]) through
+#: ``numpy.random.SeedSequence``).  They are not the reference's threefry
+#: streams, so run exports carry this in place of the reference's
+#: ``SCAN_RNG_STREAM_VERSION`` (:mod:`repro_torch.obs.metrics`); bump it
+#: when the keying or the draw order changes.
+TORCH_DRAW_STREAM_VERSION = "torch-1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,19 +289,23 @@ def _pmu_counters_scan(comps, omega, retire, cycles: float,
 
 def _make_machine_quantum(dt: DeviceTables, params: MachineParams):
     """Closure: one quantum of the fixed-horizon machine,
-    ``quantum(state, partner, draws, q) -> (counters, state', slowdown)``.
-    State and partner tensors may carry leading lane axes (then
-    ``slowdown`` has them too), matched by the draws' shapes."""
+    ``quantum(state, partner, draws, q) -> (counters, state', slowdown)``,
+    and with ``with_ratio=True`` also the per-slot slowdown ratios whose
+    mean ``slowdown`` is (the telemetry rings read them).  State and
+    partner tensors may carry leading lane axes (then ``slowdown`` has them
+    too), matched by the draws' shapes."""
     n = dt.n_apps
     idx = torch.arange(n, device=dt.comps.device)
     cycles = float(np.float32(params.quantum_cycles))
 
-    def quantum(state: _MachineState, partner, draws, q: int):
+    def quantum(state: _MachineState, partner, draws, q: int,
+                with_ratio: bool = False):
         ph = state.phase_idx % dt.n_phases
         comps = _corun_components_scan(dt, ph, partner, params)
         cpi = comps.sum(-1)
         solo_cpi = dt.comps[idx, ph].sum(-1)
-        slowdown = torch.mean(cpi / solo_cpi, -1)
+        ratio = cpi / solo_cpi
+        slowdown = torch.mean(ratio, -1)
 
         retired = cycles / cpi * dt.retire
         counters = _pmu_counters_scan(comps, dt.omega, dt.retire, cycles,
@@ -299,6 +327,8 @@ def _make_machine_quantum(dt: DeviceTables, params: MachineParams):
             total_retired=state.total_retired + retired,
             total_cycles=state.total_cycles + cycles,
         )
+        if with_ratio:
+            return counters, new_state, slowdown, ratio
         return counters, new_state, slowdown
 
     return quantum
@@ -311,17 +341,34 @@ def _machine_partner_of(mpart, n: int):
     return torch.where(mp < n, mp, idx)
 
 
+def _policy_zeros(mpart, n: int):
+    """The policy half of a ring row for a policy that predicts nothing:
+    (..., 6) zeros and (..., n) zero per-slot predictions."""
+    lanes = mpart.shape[:-1]
+    return (torch.zeros(lanes + (6,), device=mpart.device),
+            torch.zeros(lanes + (n,), device=mpart.device))
+
+
 def _make_policy_step(spec: ScanPolicy, k: int, n: int, p_pad: int,
-                      valid_p: torch.Tensor):
+                      valid_p: torch.Tensor, telemetry: bool = False):
     """Closure: ``(q, counters, mpart, st, draws, first) -> (mpart', st')``.
 
     ``first`` marks the first quantum with counters: the synpa policy then
     runs the full sort-seed + 2-opt re-match instead of refining the
     carried pairing.  Every tensor may carry leading lane axes; the linux
     policy's draws then come one a lane.
+
+    ``telemetry=True`` returns ``(mpart', st', pol, pred)``: ``pol`` the
+    policy half of the ring row, ``CLOSED_FIELDS[2:]`` as (..., 6) f32
+    (mean predicted cost of the committed pairs, 2-opt rounds, the solve's
+    diagnostics), and ``pred`` (..., n) each slot's predicted slowdown,
+    half its committed pair's cost.  ``static`` and ``linux`` record
+    zeros.
     """
     if spec.kind == "static":
         def step(q, counters, mpart, st, draws, first=False):
+            if telemetry:
+                return (mpart, st) + _policy_zeros(mpart, n)
             return mpart, st
         return step
 
@@ -338,32 +385,47 @@ def _make_policy_step(spec: ScanPolicy, k: int, n: int, p_pad: int,
             # (px, y)(py, x), written in the reference's order.
             swapped = (mpart.scatter(-1, px, y).scatter(-1, y, px)
                        .scatter(-1, py, x).scatter(-1, x, py))
-            return torch.where(do, swapped, mpart), st
+            out = torch.where(do, swapped, mpart)
+            if telemetry:
+                return (out, st) + _policy_zeros(mpart, n)
+            return out, st
         return step
 
     if spec.kind != "synpa":
         raise ValueError(f"unknown policy kind {spec.kind!r}")
     if spec.method is None or spec.model is None:
         raise ValueError("synpa scan policy needs a stack method and a fitted model")
-    fstep = make_fused_step(spec.method, spec.model)
+    fstep = make_fused_step(spec.method, spec.model, with_diag=telemetry)
     full_budget = 4 * (p_pad // 2)
     idx = torch.arange(n, device=valid_p.device)
     odd = n % 2 == 1
+    n_valid = float(max(n + odd, 1))     # the valid vertices of valid_p
 
     def step(q, counters, mpart, st, draws, first=False):
         partner = _machine_partner_of(mpart, n)
         solve = partner != idx
         masks = torch.stack([solve, ~solve, torch.ones_like(solve),
                              torch.zeros_like(solve)], dim=-2)
-        cost, st = fstep(counters, partner, st, masks, odd)
+        cost, st, *fdiag = fstep(counters, partner, st, masks, odd)
         if first or spec.matcher == "full":
-            mpart = matching.device_pairs_partner(
-                cost, valid_p, eps=spec.refine_eps, max_rounds=full_budget)
+            matched = matching.device_pairs_partner(
+                cost, valid_p, eps=spec.refine_eps, max_rounds=full_budget,
+                with_rounds=telemetry)
         else:
-            mpart = matching.device_two_opt_partner(
+            matched = matching.device_two_opt_partner(
                 cost, mpart, valid_p, eps=spec.refine_eps,
-                max_rounds=spec.refine_rounds)
-        return mpart, st
+                max_rounds=spec.refine_rounds, with_rounds=telemetry)
+        if not telemetry:
+            return matched, st
+        mpart, rounds = matched
+        # Each committed pair's cost appears twice (i -> j and j -> i) over
+        # n_valid / 2 pairs, so the two factors of 2 cancel.
+        gathered = torch.where(
+            valid_p, cost.gather(-1, mpart[..., None])[..., 0], 0.0)
+        pred = gathered.sum(-1) / n_valid
+        pol = torch.cat([torch.stack([pred, rounds.to(torch.float32)], -1),
+                         fdiag[0]], -1)
+        return mpart, st, pol, gathered[..., :n] * 0.5
 
     return step
 
@@ -392,8 +454,29 @@ def _initial_mpart(n: int, p_pad: int, rng: np.random.Generator) -> np.ndarray:
     return mpart
 
 
+def _app_rows(ratio, partner, pred_slot, st):
+    """One quantum's ``APP_FIELDS`` block, (..., N, 9): the slot index as
+    its app id, the co-runner (-1 when solo), the predicted and true
+    slowdowns, their residual where a prediction exists, and the ST
+    estimates (zero-padded to four categories)."""
+    n = partner.shape[-1]
+    idx = torch.arange(n, device=partner.device)
+    co = partner != idx
+    pred = torch.where(co, pred_slot, 0.0)
+    resid = torch.where(pred > 0.0, pred - ratio, 0.0)
+    st4 = st[..., :APP_ST_WIDTH]
+    if st4.shape[-1] < APP_ST_WIDTH:
+        st4 = torch.cat([st4, st4.new_zeros(
+            st4.shape[:-1] + (APP_ST_WIDTH - st4.shape[-1],))], -1)
+    head = torch.stack([idx.to(torch.float32).expand(partner.shape),
+                        torch.where(co, partner, -1).to(torch.float32),
+                        pred, ratio, resid], -1)
+    return torch.cat([head, st4], -1)
+
+
 def build_race(tables, params: MachineParams, policies: Sequence[ScanPolicy],
-               n_quanta: int, device):
+               n_quanta: int, device, telemetry: bool = False,
+               app_telemetry: bool = False):
     """K-policy race on ``device``.
 
     Returns ``race(dt, init_mpart (K, P), init_st (K, N, 4), draws)`` ->
@@ -403,7 +486,13 @@ def build_race(tables, params: MachineParams, policies: Sequence[ScanPolicy],
     ``init_mpart`` (K, L, P), ``init_st`` (K, L, N, 4) and a
     :class:`LaneDraws` of L lanes give outputs with the lane axis after
     the policy axis.
+
+    ``telemetry`` appends the ``CLOSED_FIELDS`` ring, (K[, L], Q, 8), and
+    ``app_telemetry`` (which implies it) the ``APP_FIELDS`` ring,
+    (K[, L], Q, N, 9).  Quantum 0 runs no policy: its policy fields are
+    zero.  Each row reads the state the quantum is about to run.
     """
+    telemetry = telemetry or app_telemetry
     device = torch.device(device)
     n = int(tables.n_apps)
     p_pad = fused_pad(n)
@@ -412,7 +501,7 @@ def build_race(tables, params: MachineParams, policies: Sequence[ScanPolicy],
     if n % 2 == 1:
         valid_np[n] = True
     valid_p = torch.as_tensor(valid_np, device=device)
-    steps = [_make_policy_step(s, k, n, p_pad, valid_p)
+    steps = [_make_policy_step(s, k, n, p_pad, valid_p, telemetry=telemetry)
              for k, s in enumerate(policies)]
 
     def run_one(dt, quantum, policy_step, mpart, st, draws):
@@ -425,27 +514,49 @@ def build_race(tables, params: MachineParams, policies: Sequence[ScanPolicy],
             total_cycles=torch.zeros(shape, dtype=torch.float32,
                                      device=device),
         )
+        tvecs, avecs = [], []
+
+        def run_quantum(state, partner, q, pol=None, pred=None):
+            if not telemetry:
+                return quantum(state, partner, draws, q)
+            counters, state, slow, ratio = quantum(state, partner, draws, q,
+                                                   with_ratio=True)
+            if pol is None:             # no policy ran: zeros
+                pol, pred = _policy_zeros(mpart, n)
+            tvecs.append(torch.cat([ratio.mean(-1, keepdim=True),
+                                    ratio.amax(-1, keepdim=True), pol], -1))
+            if app_telemetry:
+                avecs.append(_app_rows(ratio, partner, pred, st))
+            return counters, state, slow
+
         # Quantum 0: the initial random pairing, no counters yet.
-        counters, state, slow0 = quantum(
-            state, _machine_partner_of(mpart, n), draws, 0)
+        counters, state, slow0 = run_quantum(
+            state, _machine_partner_of(mpart, n), 0)
         slows = [slow0]
         for q in range(1, n_quanta):
-            mpart, st = policy_step(q, counters, mpart, st, draws,
-                                    first=(q == 1))
-            counters, state, slow = quantum(
-                state, _machine_partner_of(mpart, n), draws, q)
+            mpart, st, *ring = policy_step(q, counters, mpart, st, draws,
+                                           first=(q == 1))
+            counters, state, slow = run_quantum(
+                state, _machine_partner_of(mpart, n), q, *ring)
             slows.append(slow)
         # Summed as the reference does: quanta 0 and 1, then the rest.
         head = slows[0] + slows[1] if len(slows) > 1 else slows[0]
         slow_sum = (head + torch.stack(slows[2:]).sum(0) if len(slows) > 2
                     else head)
-        return state.total_retired, state.total_cycles, slow_sum
+        out = (state.total_retired, state.total_cycles, slow_sum)
+        if telemetry:
+            out += (torch.stack(tvecs, -2),)
+        if app_telemetry:
+            out += (torch.stack(avecs, -3),)
+        return out
+
+    n_out = 3 + int(telemetry) + int(app_telemetry)
 
     def race(dt: DeviceTables, init_mpart, init_st, draws):
         quantum = _make_machine_quantum(dt, params)
         outs = [run_one(dt, quantum, step, init_mpart[k], init_st[k], draws)
                 for k, step in enumerate(steps)]
-        return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
+        return tuple(torch.stack([o[i] for o in outs]) for i in range(n_out))
 
     return race
 
@@ -480,17 +591,27 @@ def _timed(fn, device: torch.device, repeats: int):
     return out, float(np.median(walls) if walls else warm)
 
 
-def _result(n: int, n_quanta: int, retired, cycles, slow_sum,
-            per_quantum: float) -> ThroughputResult:
-    ipc = retired / np.maximum(cycles, 1.0)
-    return ThroughputResult(
-        n_apps=n,
-        quanta=n_quanta,
-        ipc=ipc,
-        total_retired=float(retired.sum()),
-        mean_true_slowdown=float(slow_sum) / max(n_quanta, 1),
-        machine_s_per_quantum=per_quantum,
-    )
+def _results(names, n: int, n_quanta: int, fetched, per_quantum: float,
+             telemetry: bool, app_telemetry: bool, lane=()):
+    """``{name: ThroughputResult}`` from a race's fetched outputs (the
+    K-policy axis first, then ``lane``'s index), rings attached."""
+    out = {}
+    for k, name in enumerate(names):
+        retired, cycles, slow_sum, *rings = (f[(k,) + lane]
+                                            for f in fetched)
+        out[name] = ThroughputResult(
+            n_apps=n,
+            quanta=n_quanta,
+            ipc=retired / np.maximum(cycles, 1.0),
+            total_retired=float(retired.sum()),
+            mean_true_slowdown=float(slow_sum) / max(n_quanta, 1),
+            machine_s_per_quantum=per_quantum,
+            telemetry=(TelemetryLog(CLOSED_FIELDS, rings[0], policy=name)
+                       if telemetry else None),
+            app_telemetry=(AppTelemetryLog(APP_FIELDS, rings[1], policy=name)
+                           if app_telemetry else None),
+        )
+    return out
 
 
 def run_quanta_scan(
@@ -502,6 +623,8 @@ def run_quanta_scan(
     device=None,
     draws=None,
     repeats: int = 1,
+    telemetry: bool = False,
+    app_telemetry: bool = False,
 ) -> Dict[str, ThroughputResult]:
     """Race K policies through one workload for ``n_quanta`` quanta.
 
@@ -512,29 +635,39 @@ def run_quanta_scan(
     ``draws`` defaults to :class:`TorchDraws` keyed from ``seed``.  To
     race several seeds, use :func:`run_quanta_multi_batched`: one run for
     all of them.
+
+    ``telemetry=True`` attaches each policy's ``CLOSED_FIELDS`` ring as
+    ``ThroughputResult.telemetry``; ``app_telemetry=True`` (which implies
+    it) also the ``APP_FIELDS`` ring as ``ThroughputResult.app_telemetry``.
+    The results are those of a run without rings, bit for bit.
     """
+    telemetry = telemetry or app_telemetry
     device = resolve_device(device)
     tables = PhaseTables.build(profiles)
     n = int(tables.n_apps)
     p_pad = fused_pad(n)
     specs = list(policies.values())
-    race = build_race(tables, params, specs, n_quanta, device)
-    init_mpart = torch.as_tensor(np.stack([
-        _initial_mpart(n, p_pad, np.random.default_rng(seed + 7919))
-        for _ in specs
-    ]), device=device)
-    init_st = torch.as_tensor(
-        np.stack([_uniform_stacks(s, n) for s in specs]), device=device)
-    dt = DeviceTables.build(tables, device)
+    race = build_race(tables, params, specs, n_quanta, device,
+                      telemetry=telemetry, app_telemetry=app_telemetry)
+    with obs_trace.span("scan.commit"):
+        init_mpart = torch.as_tensor(np.stack([
+            _initial_mpart(n, p_pad, np.random.default_rng(seed + 7919))
+            for _ in specs
+        ]), device=device)
+        init_st = torch.as_tensor(
+            np.stack([_uniform_stacks(s, n) for s in specs]), device=device)
+        dt = DeviceTables.build(tables, device)
     draws = draws if draws is not None else TorchDraws(seed, device)
 
-    out, wall = _timed(lambda: race(dt, init_mpart, init_st, draws), device,
-                       repeats)
+    with obs_trace.span("scan.dispatch", n=n, quanta=n_quanta,
+                        repeats=repeats):
+        out, wall = _timed(lambda: race(dt, init_mpart, init_st, draws),
+                           device, repeats)
     per_quantum = wall / max(n_quanta, 1)
-    retired, cycles, slow_sum = (o.cpu().numpy() for o in out)
-    return {name: _result(n, n_quanta, retired[k], cycles[k], slow_sum[k],
-                          per_quantum)
-            for k, name in enumerate(policies)}
+    with obs_trace.span("scan.stats"):
+        fetched = [o.cpu().numpy() for o in out]
+        return _results(list(policies), n, n_quanta, fetched, per_quantum,
+                        telemetry, app_telemetry)
 
 
 def run_quanta_multi_batched(
@@ -564,13 +697,13 @@ def run_quanta_multi_batched(
 
     Runs the batch once (the result), then ``repeats`` more times, timed;
     per-lane ``machine_s_per_quantum`` is the batch's median wall (the
-    first run's when ``repeats=0``) over ``len(seeds) * n_quanta``.  ``machine`` supplies the machine params;
-    the telemetry rings are not ported yet.
+    first run's when ``repeats=0``) over ``len(seeds) * n_quanta``.
+    ``machine`` supplies the machine params.  ``telemetry`` and
+    ``app_telemetry`` attach each lane's rings, as
+    :func:`run_quanta_scan` does; each lane's rings are those of its single
+    race, bit for bit.
     """
-    if telemetry or app_telemetry:
-        raise NotImplementedError(
-            "telemetry rings of the closed race are not ported yet "
-            "(ROADMAP, open item 1)")
+    telemetry = telemetry or app_telemetry
     seeds = [int(s) for s in seeds]
     if not seeds:
         raise ValueError("a batched race needs at least one seed lane")
@@ -580,7 +713,8 @@ def run_quanta_multi_batched(
     n = int(tables.n_apps)
     p_pad = fused_pad(n)
     specs = list(policies.values())
-    race = build_race(tables, params, specs, n_quanta, device)
+    race = build_race(tables, params, specs, n_quanta, device,
+                      telemetry=telemetry, app_telemetry=app_telemetry)
     init_mpart = torch.as_tensor(np.stack([np.stack([
         _initial_mpart(n, p_pad, np.random.default_rng(seed + 7919))
         for seed in seeds]) for _ in specs]), device=device)
@@ -591,11 +725,14 @@ def run_quanta_multi_batched(
     if draws is None:
         draws = LaneDraws([TorchDraws(seed, device) for seed in seeds])
 
-    out, wall = _timed(lambda: race(dt, init_mpart, init_st, draws), device,
-                       repeats)
+    with obs_trace.span("scan.dispatch", n=n, quanta=n_quanta,
+                        lanes=len(seeds), repeats=repeats):
+        out, wall = _timed(lambda: race(dt, init_mpart, init_st, draws),
+                           device, repeats)
     per_quantum = wall / max(len(seeds) * n_quanta, 1)
-    retired, cycles, slow_sum = (o.cpu().numpy() for o in out)
-    return {name: [_result(n, n_quanta, retired[k, i], cycles[k, i],
-                           slow_sum[k, i], per_quantum)
-                   for i in range(len(seeds))]
-            for k, name in enumerate(policies)}
+    with obs_trace.span("scan.stats", lanes=len(seeds)):
+        fetched = [o.cpu().numpy() for o in out]
+        lanes = [_results(list(policies), n, n_quanta, fetched, per_quantum,
+                          telemetry, app_telemetry, lane=(i,))
+                 for i in range(len(seeds))]
+    return {name: [lane[name] for lane in lanes] for name in policies}

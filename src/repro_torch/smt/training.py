@@ -32,6 +32,13 @@ from repro_torch.smt.machine import (
 )
 
 
+#: Version of the profiling campaign's RNG-stream interleaving, the
+#: reference's (``repro.smt.training.RNG_STREAM_VERSION``): this campaign
+#: draws the same numbers in the same order.  Run exports are stamped with
+#: it (:func:`repro_torch.obs.metrics.version_stamp`).
+RNG_STREAM_VERSION = 2
+
+
 @dataclasses.dataclass
 class ProfilingData:
     """Raw profiling runs shared by all stack methods."""

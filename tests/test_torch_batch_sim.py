@@ -279,9 +279,10 @@ def test_incompatible_lanes_are_refused(env):
             run_device_sim_batched([a, b], 4, warmup=False)
     with pytest.raises(ValueError):
         run_device_sim_batched([], 4)
+    # Rings are no reason to refuse a lane (open item 1 is ported).
     for kw in ({"telemetry": True}, {"app_telemetry": True}):
-        with pytest.raises(NotImplementedError, match="item 1"):
-            run_device_sim_batched([a], 4, **kw)
+        assert run_device_sim_batched([a], 4, warmup=False, **kw)[
+            0].telemetry.quanta == 4
 
 
 @pytest.fixture(scope="module")
@@ -358,10 +359,10 @@ def test_batched_race_runs_on_cuda_unless_asked_for_the_cpu(env,
     res = tse.run_quanta_multi_batched(env["tmach"], profs, pol, [1, 2],
                                        n_quanta=2, device="cpu", repeats=0)
     assert [r.n_apps for r in res["random"]] == [8, 8]
-    with pytest.raises(NotImplementedError, match="item 1"):
-        tse.run_quanta_multi_batched(env["tmach"], profs, pol, [1],
-                                     n_quanta=2, device="cpu",
-                                     telemetry=True)
+    ringed = tse.run_quanta_multi_batched(env["tmach"], profs, pol, [1],
+                                          n_quanta=2, device="cpu",
+                                          repeats=0, telemetry=True)
+    assert ringed["random"][0].telemetry.data.shape == (2, 8)
     with pytest.raises(ValueError):
         tse.run_quanta_multi_batched(env["tmach"], profs, pol, [],
                                      n_quanta=2, device="cpu")
