@@ -132,7 +132,33 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    and resumed, bit for bit; resumed past a corrupted newest snapshot, bit
    for bit; the host syncs audited (the run's own plus one a segment);
    its wall per quantum against ``run_device_sim``'s and the snapshot
-   write time per segment.
+   write time per segment;
+22. the paper's §6.2 workload race through the host tier:
+   ``make_workloads`` (N = 8), workloads ``fb0``, ``be0``, ``fe0``
+   (``RACE6_WORKLOADS``, fixed base seeds), ``linux``, ``hy-sched`` and
+   ``SYNPA4_R-FEBE`` (``SynpaScheduler`` on the card) through
+   ``run_repeated(repeats=2)``, audited for host syncs, with every
+   kernel's launch count set to 0 just before and read just after
+   (``pair_score`` once a SYNPA quantum): makespan, average turnaround and
+   IPC geomean per policy, the TT speedup over ``linux`` per workload and
+   its mean (SYNPA4_R-FEBE's must exceed 1); then ``fb0`` on the card
+   against the CPU: the same pairing every quantum, turnaround within
+   rtol 1e-5;
+23. phase 6's race through the host matchers:
+   ``run_quanta_multi(engine="vector")`` at N = 1024, 8 quanta, seed 3,
+   ``linux``/``random``/``synpa4`` (``SynpaScheduler``: the fused step on
+   the card, one cost copy, the tiled matcher on the host), audited, the
+   launches counted as in phase 22: mean true slowdown per policy
+   (``synpa4`` must beat both), wall per quantum split into fused step,
+   cost copy and host matcher, phase 6's numbers printed beside;
+24. the open system's host event loop at phase 13's cell (capacity 1024,
+   24 quanta): ``StreamingAllocator`` under fifo, synergy and fifo with
+   the ``combined`` faults, and ``LinuxOnline``, each audited and counted
+   as in phase 22: slowdowns, jobs, wall per quantum split as in phase
+   23, syncs (``synpa4-stream`` must beat ``LinuxOnline`` on mean
+   slowdown), phase 13's numbers printed beside; then capacity 16 on the
+   card against the CPU: the same pairs every quantum, integer logs
+   identical, finish quanta within rtol 1e-5.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -335,9 +361,10 @@ def _attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def _audited(fn):
+def _sync_warnings(fn):
     """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``: the
-    warnings of the host synchronisations it made."""
+    warnings of the host synchronisations it made (not the notice, printed
+    once a process, that the debug mode is a prototype)."""
     import torch
 
     with warnings.catch_warnings(record=True) as seen:
@@ -347,7 +374,13 @@ def _audited(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return [str(w.message) for w in seen if "synchroniz" in str(w.message)]
+    return [w for w in seen if "synchroniz" in str(w.message)
+            and "prototype" not in str(w.message)]
+
+
+def _audited(fn):
+    """The messages of :func:`_sync_warnings`."""
+    return [str(w.message) for w in _sync_warnings(fn)]
 
 
 def _close(got, want, tol: float, what: str) -> float:
@@ -2420,6 +2453,368 @@ def _checkpointed_run(dev, kernel_mods, open_runs):
     return launches
 
 
+#: The paper's §6.2 race (phase 22): ``benchmarks/fig9_hysched.py``'s
+#: policies on three of its quick workloads, two repeats, fixed base seeds
+#: (the benchmark's ``abs(hash(w))`` changes from process to process).
+RACE6_WORKLOADS = {"fb0": 101, "be0": 202, "fe0": 303}
+RACE6_REPEATS = 2
+#: The card against the CPU on the open host loop (phase 24).
+HOST_SMALL_CORES, HOST_SMALL_QUANTA = 8, 40
+
+
+class _Synced:
+    """Host syncs the host tier counts: the cost copy, the fallback flag,
+    the 2-opt flag and the device matcher's partner copy."""
+
+    def __init__(self):
+        from repro_torch.core import matching, regression, synpa
+
+        self.owners = ((synpa, "HOST_COST_COPIES"),
+                       (regression, "NEED_FB_SYNCS"),
+                       (matching, "TWO_OPT_SYNCS"),
+                       (matching, "HOST_PARTNER_COPIES"))
+        self.start = self.now()
+
+    def now(self):
+        return [getattr(m, c) for m, c in self.owners]
+
+    def since(self):
+        return [a - b for a, b in zip(self.now(), self.start)]
+
+
+def _audited_run(fn, what: str):
+    """Run ``fn`` once under the sync audit: every host sync it makes must
+    be one the host tier counts.  Returns ``(fn's result, [cost copies,
+    fallback flags, 2-opt flags, partner copies])``."""
+    import collections
+
+    import torch
+
+    torch.cuda.synchronize()
+    counted = _Synced()
+    out = []
+    seen = _sync_warnings(lambda: out.append(fn()))
+    torch.cuda.synchronize()
+    syncs = counted.since()
+    if len(seen) != sum(syncs):
+        where = collections.Counter(f"{w.filename}:{w.lineno}" for w in seen)
+        for loc, k in where.most_common():
+            _line("syncs", f"{k} at {loc}")
+        raise AssertionError(f"{what}: {len(seen)} sync warnings, "
+                             f"{sum(syncs)} counted {syncs}")
+    return out[0], syncs
+
+
+def _split_ms(timings):
+    """Medians of the host tier's per-quantum (step, copy, matcher)
+    timings, in ms."""
+    import numpy as np
+
+    t = np.asarray(timings, np.float64).reshape(-1, 3)
+    return tuple(float(np.median(t[:, k])) * 1e3 for k in range(3))
+
+
+def _workload_race(dev, model, kernel_mods):
+    """Phase 22: the paper's §6.2 race on the card.  Returns the kernels'
+    launches of the race."""
+    import numpy as np
+
+    from repro_torch.core import isc, regression
+    from repro_torch.core.baselines import HySchedScheduler, LinuxScheduler
+    from repro_torch.core.synpa import SynpaScheduler
+    from repro_torch.smt import metrics, workloads
+    from repro_torch.smt.machine import MachineParams, SMTMachine
+
+    machine = SMTMachine(MachineParams(), seed=0)
+    wls = workloads.make_workloads(SMTMachine(MachineParams(), seed=0))
+    # Built before the audited race: a scheduler's construction copies
+    # its constants to the card once.
+    synpas = [SynpaScheduler(isc.SYNPA4_R_FEBE, model, device=dev)
+              for _ in range(len(RACE6_WORKLOADS) * RACE6_REPEATS)]
+    built = iter(synpas)
+
+    policies = {"linux": LinuxScheduler, "hy-sched": HySchedScheduler,
+                "SYNPA4_R-FEBE": lambda: next(built)}
+    for mod in kernel_mods.values():
+        mod.LAUNCHES = 0
+    fb0 = regression.FALLBACK_RUNS
+    t0 = time.perf_counter()
+
+    def race():
+        return {w: {p: metrics.run_repeated(
+            machine, workloads.workload_profiles(wls[w]), f,
+            repeats=RACE6_REPEATS, base_seed=seed)
+            for p, f in policies.items()}
+            for w, seed in RACE6_WORKLOADS.items()}
+
+    res, syncs = _audited_run(race, "the §6.2 race")
+    race_s = time.perf_counter() - t0
+    launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+    steps = sum(len(s.timings) for s in synpas)
+    if launches["pair_score"] != steps or any(
+            v for n, v in launches.items() if n != "pair_score"):
+        raise AssertionError(f"§6.2 race: launches {launches}, expected "
+                             f"pair_score {steps} (one a SYNPA quantum)")
+    if syncs[0] != steps or syncs[2:] != [0, 0]:
+        raise AssertionError(f"§6.2 race: syncs {syncs}, expected {steps} "
+                             "cost copies")
+    speedups = {}
+    for w, row in res.items():
+        for p, st in row.items():
+            if not (math.isfinite(st.makespan_s) and st.makespan_s > 0):
+                raise AssertionError(f"§6.2 race {w} {p}: makespan "
+                                     f"{st.makespan_s!r}")
+            _line("workload", f"{w} {p}: makespan {st.makespan_s!r} s, "
+                  f"average turnaround {st.avg_turnaround_s!r} s, IPC "
+                  f"geomean {st.ipc_geomean!r} (repeats {st.n_runs}, kept "
+                  f"{st.n_kept}, cv {st.cv:.4f})")
+        speedups[w] = {p: metrics.speedup(row["linux"].makespan_s,
+                                          st.makespan_s)
+                       for p, st in row.items()}
+    mean = {p: float(np.mean([speedups[w][p] for w in speedups]))
+            for p in policies}
+    _line("workload", "TT speedup over linux (makespan), per workload: "
+          + "; ".join(f"{w} " + ", ".join(f"{p} {v:.4f}" for p, v in s.items())
+                      for w, s in speedups.items())
+          + "; mean " + ", ".join(f"{p} {v!r}" for p, v in mean.items()))
+    step, copy, match = _split_ms([t for s in synpas for t in s.timings])
+    _line("workload", f"{steps} SYNPA quanta, {launches['pair_score']} "
+          f"pair_score launches; per quantum (medians) fused step on the "
+          f"card {step:.3f} ms, cost copy {copy:.3f} ms, host matcher "
+          f"{match:.3f} ms; the heavy-ball fallback ran in "
+          f"{regression.FALLBACK_RUNS - fb0} of {steps} steps; host syncs: "
+          f"cost copies {syncs[0]}, fallback flags {syncs[1]}, all counted; "
+          f"race wall {race_s:.3f} s")
+    if not mean["SYNPA4_R-FEBE"] > 1.0:
+        raise AssertionError("§6.2 race: SYNPA4_R-FEBE's mean TT speedup "
+                             f"over linux {mean['SYNPA4_R-FEBE']!r} <= 1")
+
+    # The card against the CPU on fb0, first repeat's seed: the same
+    # pairing every quantum, equal turnaround.
+    profs = workloads.workload_profiles(wls["fb0"])
+    out, logs = {}, {}
+    for where in (dev, "cpu"):
+        pol = SynpaScheduler(isc.SYNPA4_R_FEBE, model, device=where)
+        log, inner = [], pol.schedule
+        pol.schedule = lambda q, s, p, inner=inner, log=log: (
+            log.append(inner(q, s, p)) or log[-1])
+        out[str(where)] = SMTMachine(MachineParams(), seed=0).run_workload(
+            profs, pol, seed=RACE6_WORKLOADS["fb0"])
+        logs[str(where)] = log
+    card, cpu = out[str(dev)], out["cpu"]
+    if logs[str(dev)] != logs["cpu"]:
+        q = next(k for k, (a, b) in enumerate(zip(logs[str(dev)],
+                                                  logs["cpu"])) if a != b)
+        raise AssertionError(f"fb0: the card's pairing differs from the "
+                             f"CPU's at quantum {q}")
+    err = float(np.max(np.abs(card.turnaround_s - cpu.turnaround_s)
+                       / cpu.turnaround_s))
+    if err > 1e-5:
+        raise AssertionError(f"fb0: turnaround card vs CPU {err:.3e} rel")
+    _line("workload", f"fb0 card against CPU: the same pairing in all "
+          f"{len(logs['cpu'])} quanta, turnaround max rel diff {err:.3e} "
+          f"(limit 1e-5), makespan card {card.makespan_s!r} CPU "
+          f"{cpu.makespan_s!r}")
+    return launches
+
+
+def _host_race(dev, model, kernel_mods, race_res):
+    """Phase 23: phase 6's cluster-scale race through the host matchers
+    (``run_quanta_multi(engine="vector")``, ``SynpaScheduler``, the tiled
+    matcher at N = 1024).  Returns the kernels' launches."""
+    from repro_torch.core import isc, regression
+    from repro_torch.core.baselines import (LinuxScheduler,
+                                            RandomStaticScheduler)
+    from repro_torch.core.synpa import SynpaScheduler
+    from repro_torch.smt.machine import MachineParams, SMTMachine
+    from repro_torch.smt.workloads import scaled_workload
+
+    profiles = scaled_workload(N_APPS, seed=N_APPS)
+    synpa = SynpaScheduler(isc.SYNPA4_R_FEBE, model, device=dev)
+    policies = {"linux": LinuxScheduler, "random": RandomStaticScheduler,
+                "synpa4": lambda: synpa}
+    for mod in kernel_mods.values():
+        mod.LAUNCHES = 0
+    fb0 = regression.FALLBACK_RUNS
+    t0 = time.perf_counter()
+    res, syncs = _audited_run(
+        lambda: SMTMachine(MachineParams(), seed=0).run_quanta_multi(
+            profiles, policies, n_quanta=N_QUANTA, seed=RACE_SEED,
+            engine="vector"), "the host race")
+    race_s = time.perf_counter() - t0
+    launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+    steps = len(synpa.timings)
+    if launches["pair_score"] != steps or steps != N_QUANTA - 1 or any(
+            v for n, v in launches.items() if n != "pair_score"):
+        raise AssertionError(f"host race: launches {launches}, expected "
+                             f"pair_score {N_QUANTA - 1}")
+    for name, r in res.items():
+        if r.ipc.shape != (N_APPS,) or not math.isfinite(
+                r.mean_true_slowdown):
+            raise AssertionError(f"host race {name}: bad result")
+        _line("host", f"N={N_APPS} {name}: mean true slowdown "
+              f"{r.mean_true_slowdown!r}, IPC geomean {r.ipc_geomean!r}; "
+              f"wall per quantum: policy {r.sched_s_per_quantum * 1e3:.3f}"
+              f" ms (median {r.sched_s_per_quantum_median * 1e3:.3f}), "
+              f"machine {r.machine_s_per_quantum * 1e3:.3f} ms")
+    step, copy, match = _split_ms(synpa.timings)
+    _line("host", f"synpa4 per quantum (medians of {steps}): fused step on "
+          f"the card {step:.3f} ms, cost copy {copy:.3f} ms, host matcher "
+          f"(tiled) {match:.3f} ms; pair_score launches "
+          f"{launches['pair_score']}; the heavy-ball fallback ran in "
+          f"{regression.FALLBACK_RUNS - fb0} of {steps} steps; host syncs: "
+          f"cost copies {syncs[0]}, "
+          f"fallback flags {syncs[1]}, all counted; race {race_s:.3f} s")
+    _line("host", f"phase 6 (scan engine, the device matcher, the port's "
+          f"torch draws) synpa4 {race_res['synpa4'].mean_true_slowdown!r}, "
+          f"random {race_res['random'].mean_true_slowdown!r}, linux "
+          f"{race_res['linux'].mean_true_slowdown!r}: printed beside, not "
+          "compared (the numpy machine draws other noise)")
+    for other in ("linux", "random"):
+        if not (res["synpa4"].mean_true_slowdown
+                < res[other].mean_true_slowdown):
+            raise AssertionError(f"host race: synpa4 does not beat {other}")
+    return launches
+
+
+def _same_host_run(card, cpu, what: str) -> None:
+    """Two host open runs: integer logs identical, floats rtol 1e-5."""
+    import numpy as np
+
+    ints = [(r.job_id, r.app_name, r.arrive_q, r.admit_q, r.retries)
+            for r in card.completed]
+    if ints != [(r.job_id, r.app_name, r.arrive_q, r.admit_q, r.retries)
+                for r in cpu.completed]:
+        raise AssertionError(f"{what}: job logs differ card vs CPU")
+    for name in ("queue_depth", "active", "solo_quanta", "arrivals",
+                 "admissions", "departures"):
+        if not np.array_equal(getattr(card, name), getattr(cpu, name)):
+            raise AssertionError(f"{what}: {name} differs card vs CPU")
+    for a, b in zip(card.completed, cpu.completed):
+        if not abs(a.finish_q - b.finish_q) <= 1e-5 * abs(b.finish_q):
+            raise AssertionError(f"{what}: job {a.job_id} finishes at "
+                                 f"{a.finish_q!r} on the card, "
+                                 f"{b.finish_q!r} on the CPU")
+
+
+def _host_open(dev, model, kernel_mods, open_runs):
+    """Phase 24: the open system's host event loop with
+    ``StreamingAllocator`` at capacity 1024 (phase 13's cell).  Returns
+    the kernels' launches over its runs."""
+    import numpy as np
+
+    from repro_torch.core import isc, regression
+    from repro_torch.online import (ClusterSim, FaultProfile, LinuxOnline,
+                                    PoissonArrivals, StreamingAllocator,
+                                    SynergyAdmission)
+    from repro_torch.smt.apps import pool_profiles
+    from repro_torch.smt.machine import MachineParams, PhaseTables, SMTMachine
+
+    machine = SMTMachine(MachineParams(), seed=0)
+    pool = pool_profiles()
+    tables = PhaseTables.build(pool)
+    n_cores = OPEN_CAPACITY // 2
+    rate = OPEN_RHO * OPEN_CAPACITY / mean_service_quanta(machine)
+    syn = SynergyAdmission(machine, pool, isc.SYNPA4_R_FEBE, model)
+
+    def stream():
+        return StreamingAllocator(isc.SYNPA4_R_FEBE, model,
+                                  name="synpa4-stream", device=dev)
+
+    runs = {
+        "linux": (LinuxOnline, {}),
+        "synpa4-stream fifo": (stream, {}),
+        "synpa4-stream synergy": (stream, dict(admission="synergy",
+                                               synergy=syn)),
+        "synpa4-stream fifo combined faults": (
+            stream, dict(faults=_fault_profile(FaultProfile, "combined",
+                                               n_cores, OPEN_QUANTA))),
+    }
+    total = {n: 0 for n in kernel_mods}
+    stats = {}
+    for name, (make, kw) in runs.items():
+        pol = make()
+        sim = ClusterSim(machine, pool, n_cores, pol,
+                         PoissonArrivals(rate=rate, n_pool=len(pool)),
+                         seed=OPEN_SEED, target_scale=TARGET_SCALE,
+                         tables=tables, engine="host", device=dev, **kw)
+        for mod in kernel_mods.values():
+            mod.LAUNCHES = 0
+        fb0 = regression.FALLBACK_RUNS
+        t0 = time.perf_counter()
+        st, syncs = _audited_run(lambda: sim.run(OPEN_QUANTA),
+                                 f"open host {name}")
+        wall_s = time.perf_counter() - t0
+        launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+        for n in total:
+            total[n] += launches[n]
+        steps = len(getattr(pol, "timings", ()))
+        if launches["pair_score"] != steps or any(
+                v for n, v in launches.items() if n != "pair_score"):
+            raise AssertionError(f"open host {name}: launches {launches}, "
+                                 f"expected pair_score {steps}")
+        if not (st.n_completed > 0 and math.isfinite(st.mean_slowdown)):
+            raise AssertionError(f"open host {name}: no completed job")
+        stats[name] = st
+        split = ""
+        if steps:
+            step, copy, match = _split_ms(pol.timings)
+            split = (f"; per SYNPA quantum (medians of {steps}) fused step "
+                     f"on the card {step:.3f} ms, cost copy {copy:.3f} ms, "
+                     f"host matcher {match:.3f} ms; the heavy-ball fallback "
+                     f"ran in {regression.FALLBACK_RUNS - fb0} of {steps} "
+                     "steps")
+        faults = ""
+        if st.has_faults:
+            faults = (f"; faults: {int(st.failures.sum())} core failures, "
+                      f"{st.n_evicted} evictions, {st.n_requeued} requeues, "
+                      f"{st.n_dropped} dropped, straggler flags "
+                      f"{int(st.straggler_flags.sum())} core-quanta")
+        _line("hostopen", f"capacity {OPEN_CAPACITY} {name}: {st.n_arrived} "
+              f"arrived, {st.n_admitted} admitted, {st.n_completed} "
+              f"completed; slowdown mean {st.mean_slowdown!r} p95 "
+              f"{st.slowdown_percentile(95.0)!r}; mean queue depth "
+              f"{st.mean_queue_depth!r}; wall {wall_s * 1e3 / OPEN_QUANTA:.3f}"
+              f" ms a quantum, policy {st.policy_us_per_quantum / 1e3:.3f} "
+              f"ms (median {st.policy_us_per_quantum_median / 1e3:.3f}){split};"
+              f" launches {launches['pair_score']}; host syncs: cost copies "
+              f"{syncs[0]}, fallback flags {syncs[1]}, all counted{faults}")
+    if not (stats["synpa4-stream fifo"].mean_slowdown
+            < stats["linux"].mean_slowdown):
+        raise AssertionError("open host: synpa4-stream does not beat "
+                             "LinuxOnline on mean slowdown")
+    scan = open_runs["stats"]
+    _line("hostopen", "phase 13 (scan engine, device matcher, torch draws) "
+          "mean slowdown: " + ", ".join(
+              f"{k} {v.mean_slowdown!r}" for k, v in scan.items())
+          + ": printed beside, not compared")
+
+    # The card against the CPU at capacity 16: the same pairs every
+    # quantum, the same job logs.
+    out, logs = {}, {}
+    for where, m in ((dev, model), ("cpu", model.to("cpu"))):
+        alloc = StreamingAllocator(isc.SYNPA4_R_FEBE, m, device=where)
+        log, inner = [], alloc.pair
+        alloc.pair = lambda *a, inner=inner, log=log, **k: (
+            log.append(inner(*a, **k)) or log[-1])
+        sim = ClusterSim(SMTMachine(MachineParams(), seed=0), pool,
+                         HOST_SMALL_CORES, alloc,
+                         PoissonArrivals(rate=2.0, n_pool=len(pool)),
+                         seed=SMALL_SEED, target_scale=0.1, device=where)
+        out[str(where)] = sim.run(HOST_SMALL_QUANTA)
+        logs[str(where)] = log
+    if logs[str(dev)] != logs["cpu"]:
+        raise AssertionError("open host capacity 16: the card's pairs "
+                             "differ from the CPU's")
+    card, cpu = out[str(dev)], out["cpu"]
+    _same_host_run(card, cpu, "open host capacity 16")
+    _line("hostopen", f"capacity 16 card against CPU: the same pairs in all "
+          f"{len(logs['cpu'])} quanta; {card.n_completed} jobs, identical "
+          f"integer logs, finish quanta within 1e-5; mean slowdown card "
+          f"{card.mean_slowdown!r} CPU {cpu.mean_slowdown!r}")
+    return total
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2694,9 +3089,22 @@ def main() -> int:
     rings_s = time.perf_counter() - t_rings
     phase_s = (t_20 - t_rings, t_21 - t_20, t_rings + rings_s - t_21)
 
+    # 22-24. The host tier: the §6.2 race, the host race, the host loop.
+    t_host = time.perf_counter()
+    workload_launches = _workload_race(dev, model, kernel_mods)
+    t_23 = time.perf_counter()
+    host_race_launches = _host_race(dev, model, kernel_mods, res)
+    t_24 = time.perf_counter()
+    host_open_launches = _host_open(dev, model, kernel_mods, open_runs)
+    host_s = time.perf_counter() - t_host
+    host_phase_s = (t_23 - t_host, t_24 - t_23, t_host + host_s - t_24)
+
     new_paths = {"race_rings": ring_launches, "open_rings": open_ring_launches,
                  "grid_rings": grid_ring_launches,
-                 "checkpointed": ckpt_launches}
+                 "checkpointed": ckpt_launches,
+                 "workload_race": workload_launches,
+                 "host_race": host_race_launches,
+                 "host_open": host_open_launches}
     kernels[0]["path_launches"] = {
         "race": launches["pair_score"], "open": open_launches["pair_score"],
         "grid": grid_launches["pair_score"],
@@ -2715,10 +3123,15 @@ def main() -> int:
                                   **{k: v[entry["name"]]
                                      for k, v in new_paths.items()}}
     total_s = time.perf_counter() - t_start
+    before_s = total_s - rings_s - host_s
     _line("done", f"{total_s:.1f} s in all; phases 19-21 {rings_s:.1f} s, "
-          f"{100 * rings_s / (total_s - rings_s):.1f}% added to phases "
-          f"1-18's {total_s - rings_s:.1f} s (19: {phase_s[0]:.1f} s, 20: "
-          f"{phase_s[1]:.1f} s, 21: {phase_s[2]:.1f} s)")
+          f"{100 * rings_s / before_s:.1f}% added to phases "
+          f"1-18's {before_s:.1f} s (19: {phase_s[0]:.1f} s, 20: "
+          f"{phase_s[1]:.1f} s, 21: {phase_s[2]:.1f} s); phases 22-24 "
+          f"{host_s:.1f} s, {100 * host_s / (total_s - host_s):.1f}% added "
+          f"to phases 1-21's {total_s - host_s:.1f} s (22: "
+          f"{host_phase_s[0]:.1f} s, 23: {host_phase_s[1]:.1f} s, 24: "
+          f"{host_phase_s[2]:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -11,6 +11,7 @@ without a GPU they raise rather than carry on quietly on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -24,3 +25,16 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def to_device(x, dtype, device) -> torch.Tensor:
+    """A host array as a ``dtype`` tensor on ``device``, without a host
+    sync: on a GPU the copy goes through page-locked memory, queued on the
+    current stream (the caching host allocator keeps the buffer until the
+    copy is done).  A tensor already on a GPU is only moved and cast."""
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        return x.to(device=device, dtype=dtype)
+    t = torch.as_tensor(np.ascontiguousarray(x)).to(dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

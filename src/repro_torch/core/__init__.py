@@ -1,1 +1,2 @@
-"""ISC stacks, the Eq. 4 model, the device matcher and the fused SYNPA step."""
+"""ISC stacks, the Eq. 4 model, the matchers (host tiers and device tier),
+the fused SYNPA step, the SYNPA scheduler and the paper's baselines."""

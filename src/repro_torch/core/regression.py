@@ -14,11 +14,13 @@ Operations (paper §5.3 steps 1-2):
 * :func:`fit`              — least-squares coefficients + per-category MSE.
 * :func:`forward`          — ST stacks of a pair -> predicted SMT values.
 * :func:`predict_slowdown` — sum of the forward components.
-* :func:`_gn_with_fallback` — measured SMT stack *fractions* of co-running
-  pairs -> estimated ST stacks, by a batched damped Gauss-Newton
-  (Levenberg-Marquardt) iteration over softmax-parameterised simplex
-  points, with a heavy-ball gradient solve as the fallback for rows GN
-  has not converged.
+* :func:`inverse` / :func:`_gn_with_fallback` — measured SMT stack
+  *fractions* of co-running pairs -> estimated ST stacks, by a batched
+  damped Gauss-Newton (Levenberg-Marquardt) iteration over
+  softmax-parameterised simplex points, with a heavy-ball gradient solve
+  as the fallback for rows GN has not converged (``solver="hb"``: the
+  heavy-ball solve alone); :func:`inverse_gn_trace` and
+  :func:`inverse_trace` give each solver's per-step residuals.
 * :func:`pair_cost_matrix` — dense all-pairs cost through
   ``repro_torch.kernels.pair_score``.
 
@@ -179,7 +181,8 @@ def inverse_residual(model: CategoryModel, frac_i, frac_j, st_i, st_j):
 def _inverse_problem(model: CategoryModel, frac_i, frac_j, lr: float):
     """``(to_simplex, residual, solve_from)`` over the measured fractions;
     ``solve_from(z0_i, z0_j, n_steps)`` runs the heavy-ball gradient loop
-    and returns the final ``(z_i, z_j)``."""
+    and returns the final ``(z_i, z_j)`` (with ``trace=True`` also the
+    (n_steps, ...) residual after each step)."""
     to_simplex = _make_to_simplex(_cat_mask(model, frac_i.device))
 
     def residual(z_i, z_j):
@@ -193,9 +196,10 @@ def _inverse_problem(model: CategoryModel, frac_i, frac_j, lr: float):
             loss = residual(zi, zj).sum()
             return torch.autograd.grad(loss, (zi, zj))
 
-    def solve_from(z_i, z_j, n_steps: int):
+    def solve_from(z_i, z_j, n_steps: int, trace: bool = False):
         m_i = torch.zeros_like(z_i)
         m_j = torch.zeros_like(z_j)
+        res = []
         for _ in range(n_steps):
             g_i, g_j = grad(z_i, z_j)
             # Heavy-ball momentum keeps the solve cheap yet fast-converging.
@@ -203,20 +207,28 @@ def _inverse_problem(model: CategoryModel, frac_i, frac_j, lr: float):
             m_j = 0.7 * m_j + g_j
             z_i = z_i - lr * m_i
             z_j = z_j - lr * m_j
+            if trace:
+                res.append(residual(z_i, z_j))
+        if trace:
+            return (z_i, z_j), torch.stack(res)
         return z_i, z_j
 
     return to_simplex, residual, solve_from
 
 
 def _hb_best_of(model: CategoryModel, frac_i, frac_j, n_steps: int,
-                lr: float):
+                lr: float, init_i=None, init_j=None):
     """The heavy-ball solve: two trajectories, from the measured fractions
-    and from the uniform stack, per-row best."""
+    and from the uniform stack (or the warm ``init``), per-row best."""
     to_simplex, residual, solve_from = _inverse_problem(
         model, frac_i, frac_j, lr)
     za = solve_from(_log_init(frac_i), _log_init(frac_j), n_steps)
-    zb = solve_from(torch.zeros_like(frac_i), torch.zeros_like(frac_j),
-                    n_steps)
+    if init_i is None:
+        zb = solve_from(torch.zeros_like(frac_i), torch.zeros_like(frac_j),
+                        n_steps)
+    else:
+        zb = solve_from(_log_init(_f32(init_i, frac_i.device)),
+                        _log_init(_f32(init_j, frac_i.device)), n_steps)
     better_b = (residual(*zb) < residual(*za))[..., None]
     z_i = torch.where(better_b, zb[0], za[0])
     z_j = torch.where(better_b, zb[1], za[1])
@@ -405,11 +417,28 @@ def _gn_solve(model: CategoryModel, frac_i, frac_j, z0_i, z0_j,
     return out + (iters,) if diag else out
 
 
+def _gn_solve_scan(model: CategoryModel, frac_i, frac_j, z0_i, z0_j,
+                   n_steps: int):
+    """Fixed-step GN solve with a per-step residual trace (diagnostics):
+    the LM step of :func:`_gn_solve` applied ``n_steps`` times, without
+    its early exit.  Returns ``(st_i, st_j, res, trace)``; ``trace`` has
+    shape ``(n_steps, ...batch)``."""
+    to_simplex, init_carry, step = _make_lm_step(model, frac_i, frac_j)
+    carry = init_carry(z0_i, z0_j)
+    trace = []
+    for _ in range(n_steps):
+        carry = step(*carry)
+        trace.append(carry[3])
+    z_i, z_j, _rv, res, _lam = carry
+    return to_simplex(z_i), to_simplex(z_j), res, torch.stack(trace)
+
+
 def _gn_with_fallback(model: CategoryModel, frac_i, frac_j,
                       gn_steps: int = GN_STEPS, hb_steps: int = 80,
-                      lr: float = 1.5, return_diag: bool = False):
-    """GN solve from the measured fractions + heavy-ball fallback for
-    non-converged rows.
+                      lr: float = 1.5, init_i=None, init_j=None,
+                      return_diag: bool = False):
+    """GN solve from the measured fractions (or from ``init_i``/``init_j``,
+    which replace the start) + heavy-ball fallback for non-converged rows.
 
     The fallback runs at most once, and only when some row has not
     converged (or went non-finite): reading that flag is the one host
@@ -424,16 +453,21 @@ def _gn_with_fallback(model: CategoryModel, frac_i, frac_j,
     global NEED_FB_SYNCS, FALLBACK_RUNS
     if gn_steps < 3:
         raise ValueError("plateau detection needs at least 3 LM steps")
+    if init_i is None:
+        z0_i, z0_j = _log_init(frac_i), _log_init(frac_j)
+    else:
+        z0_i = _log_init(_f32(init_i, frac_i.device))
+        z0_j = _log_init(_f32(init_j, frac_i.device))
     st_i, st_j, res, not_converged, iters = _gn_solve(
-        model, frac_i, frac_j, _log_init(frac_i), _log_init(frac_j),
-        gn_steps, diag=True)
+        model, frac_i, frac_j, z0_i, z0_j, gn_steps, diag=True)
     need_fb = torch.any(not_converged | ~torch.isfinite(res), -1,
                         keepdim=True)       # one flag a lane
     fallback = torch.zeros_like(not_converged)
     NEED_FB_SYNCS += 1
     if bool(need_fb.any()):
         FALLBACK_RUNS += 1
-        hb_i, hb_j = _hb_best_of(model, frac_i, frac_j, hb_steps, lr)
+        hb_i, hb_j = _hb_best_of(model, frac_i, frac_j, hb_steps, lr,
+                                 init_i=init_i, init_j=init_j)
         res_hb = inverse_residual(model, frac_i, frac_j, hb_i, hb_j)
         fallback = (res_hb < res) & need_fb
         bx = fallback[..., None]
@@ -444,6 +478,101 @@ def _gn_with_fallback(model: CategoryModel, frac_i, frac_j,
         return st_i, st_j, InverseDiag(iters=iters, residual=res,
                                        fallback=fallback)
     return st_i, st_j
+
+
+def _inputs_on(model: CategoryModel, device, *arrays):
+    """The model and float32 tensors of ``arrays`` on the resolved
+    ``device`` (``cuda`` unless the caller asks for the CPU); ``None``
+    entries stay ``None``."""
+    from repro_torch import resolve_device
+
+    dev = resolve_device(device)
+    return (model.to(dev),) + tuple(
+        None if a is None else _f32(a, dev) for a in arrays)
+
+
+def inverse_gn_trace(model: CategoryModel, frac_i, frac_j,
+                     n_steps: int = GN_STEPS, init_i=None, init_j=None,
+                     device=None):
+    """Pure GN trajectory (no fallback): ``(st_i, st_j, trace)``.
+
+    ``trace[k]`` is the residual after LM step ``k+1`` — the step-count
+    budget assertions of the solver tests read it directly.  Runs on
+    ``device`` (``cuda`` unless the caller passes ``"cpu"``).
+    """
+    model, frac_i, frac_j, init_i, init_j = _inputs_on(
+        model, device, frac_i, frac_j, init_i, init_j)
+    if init_i is None:
+        z0_i, z0_j = _log_init(frac_i), _log_init(frac_j)
+    else:
+        z0_i, z0_j = _log_init(init_i), _log_init(init_j)
+    st_i, st_j, _res, trace = _gn_solve_scan(
+        model, frac_i, frac_j, z0_i, z0_j, n_steps)
+    return st_i, st_j, trace
+
+
+def inverse(model: CategoryModel, frac_i, frac_j, n_steps: int = 80,
+            lr: float = 1.5, init_i=None, init_j=None, solver: str = "gn",
+            gn_steps: int = GN_STEPS, return_diag: bool = False,
+            device=None):
+    """Invert Eq. 4 (paper §5.3 step 1).
+
+    Inputs are the *measured SMT stack fractions* of the two applications
+    sharing a core (each sums to 1).  The solve looks for the two ST
+    stacks (height 1) whose forward predictions are *parallel* to the
+    measured fractions, over the product of simplices (masked softmax).
+
+    ``solver="gn"`` (default): ``gn_steps`` damped Gauss-Newton steps from
+    the measured fractions (or from ``init_i``/``init_j``, which replace
+    the start); rows still descending at budget end, or non-finite, take
+    the heavy-ball fallback (``n_steps`` from both starts, per-row best)
+    where it does better.  ``solver="hb"``: the two heavy-ball
+    trajectories of ``n_steps`` each from (a) the measured fractions and
+    (b) the uniform stack (or the warm ``init``), per-row best.
+
+    ``return_diag=True`` returns ``(st_i, st_j, diag)`` with a per-row
+    :class:`InverseDiag`; under ``solver="hb"`` ``iters`` is the full
+    ``n_steps`` and ``fallback`` all-False.  Runs on ``device``
+    (``cuda`` unless the caller passes ``"cpu"``).
+    """
+    model, frac_i, frac_j, init_i, init_j = _inputs_on(
+        model, device, frac_i, frac_j, init_i, init_j)
+    if solver == "hb":
+        st_i, st_j = _hb_best_of(model, frac_i, frac_j, n_steps, lr,
+                                 init_i=init_i, init_j=init_j)
+        if not return_diag:
+            return st_i, st_j
+        res = inverse_residual(model, frac_i, frac_j, st_i, st_j)
+        return st_i, st_j, InverseDiag(
+            iters=torch.full(res.shape, n_steps, dtype=torch.int32,
+                             device=res.device),
+            residual=res,
+            fallback=torch.zeros(res.shape, dtype=torch.bool,
+                                 device=res.device))
+    if solver != "gn":
+        raise ValueError(f"unknown solver {solver!r}")
+    return _gn_with_fallback(model, frac_i, frac_j, gn_steps=gn_steps,
+                             hb_steps=n_steps, lr=lr, init_i=init_i,
+                             init_j=init_j, return_diag=return_diag)
+
+
+def inverse_trace(model: CategoryModel, frac_i, frac_j, n_steps: int = 80,
+                  lr: float = 1.5, init_i=None, init_j=None, device=None):
+    """Per-step residual trace of a single-start *heavy-ball* solve, from
+    the measured fractions (cold) or from ``init_i``/``init_j`` (warm):
+    ``(st_i, st_j, trace)``, ``trace`` of shape ``(n_steps, ...batch)``.
+    Runs on ``device`` (``cuda`` unless the caller passes ``"cpu"``).
+    """
+    model, frac_i, frac_j, init_i, init_j = _inputs_on(
+        model, device, frac_i, frac_j, init_i, init_j)
+    to_simplex, _residual, solve_from = _inverse_problem(
+        model, frac_i, frac_j, lr)
+    if init_i is None:
+        z0_i, z0_j = _log_init(frac_i), _log_init(frac_j)
+    else:
+        z0_i, z0_j = _log_init(init_i), _log_init(init_j)
+    (z_i, z_j), trace = solve_from(z0_i, z0_j, n_steps, trace=True)
+    return to_simplex(z_i), to_simplex(z_j), trace
 
 
 def pair_cost_matrix(model: CategoryModel, st_stacks, n_valid=None,

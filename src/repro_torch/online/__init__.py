@@ -1,9 +1,16 @@
 """The open-system layer: applications arrive, queue for a hardware
 context, run to completion and depart, while SYNPA re-pairs every quantum.
 
-* :class:`ClusterSim`        — a run configuration; ``engine="scan"`` runs
-                               the whole horizon on the device
-                               (:mod:`repro_torch.online.device_sim`);
+* :class:`ClusterSim`        — a run configuration; ``engine="host"`` (the
+                               default) runs the event loop on the host,
+                               ``engine="scan"`` the whole horizon on the
+                               device (:mod:`repro_torch.online.device_sim`);
+* :class:`StreamingAllocator` — SYNPA for the host loop: the fused step on
+                               the device, incremental re-matching on the
+                               host; :class:`StreamingScheduler` is its
+                               closed-system adapter;
+* :class:`LinuxOnline` / :class:`RandomOnline` / :class:`AdjacentOnline`
+                             — the online baselines;
 * :class:`SynergyAdmission`  — profile-informed placement and ST hints;
 * :class:`PoissonArrivals` / :class:`TraceArrivals` /
   :class:`InitialBatch`      — traffic models (:func:`presample`
@@ -19,6 +26,18 @@ context, run to completion and depart, while SYNPA re-pairs every quantum.
 """
 
 from repro_torch.online.admission import SynergyAdmission
+from repro_torch.online.allocator import (
+    IDLE_COST,
+    AdjacentOnline,
+    LinuxOnline,
+    OnlinePolicy,
+    RandomOnline,
+    StreamingAllocator,
+    StreamingConfig,
+    StreamingScheduler,
+    cold_config,
+    exact_config,
+)
 from repro_torch.online.arrivals import (
     ArrivalProcess,
     InitialBatch,
@@ -36,15 +55,25 @@ from repro_torch.online.device_sim import run_device_sim_checkpointed
 from repro_torch.online.sim import ClusterSim
 
 __all__ = [
+    "AdjacentOnline",
     "ArrivalProcess",
     "ClusterSim",
     "FAULT_RNG_STREAM_VERSION",
     "FaultProfile",
     "FaultSchedule",
+    "IDLE_COST",
     "InitialBatch",
+    "LinuxOnline",
+    "OnlinePolicy",
     "PoissonArrivals",
+    "RandomOnline",
+    "StreamingAllocator",
+    "StreamingConfig",
+    "StreamingScheduler",
     "SynergyAdmission",
     "TraceArrivals",
+    "cold_config",
+    "exact_config",
     "presample",
     "run_device_sim_batched",
     "run_device_sim_checkpointed",

@@ -34,7 +34,7 @@ apps + the 6 reserved ones.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +185,10 @@ APP_PROFILES: Tuple[AppProfile, ...] = (
 assert len(APP_PROFILES) == 28
 assert sum(1 for a in APP_PROFILES if not a.train) == 6
 assert sum(1 for a in APP_PROFILES if a.in_pool) == 24
+
+
+def profiles_by_name() -> Dict[str, AppProfile]:
+    return {a.name: a for a in APP_PROFILES}
 
 
 def train_profiles() -> List[AppProfile]:

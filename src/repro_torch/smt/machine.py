@@ -1,10 +1,18 @@
 """Ground-truth SMT machine model + PMU counter generation (numpy).
 
-The port's own copy of what the profiling campaign, the closed race and the
-open system need from ``repro.smt.machine``: the machine constants, the
-interference transform, the PMU counter model (scalar and batched), the
-array view of a workload's profiles, solo runs, solo retire rates and §6.2
-targets, and the fixed-horizon result record.
+The port's copy of ``repro.smt.machine``: the machine executes workloads in
+100 ms quanta on N 2-way SMT cores (two applications per core).  Per
+quantum it asks the scheduling policy for a thread-to-core pairing,
+advances every application by the instructions its *true* co-run CPI
+allows, and emits per-application PMU counters with realistic
+imperfections (multiplicative noise, FE/BE overlap, invisible horizontal
+waste).  Two engines run a workload: ``engine="vector"`` (batched array
+work over all N apps) and ``engine="loop"`` (the per-app reference loop);
+they draw from the machine's ``np.random.Generator`` in the same order and
+give bit-identical results.  The same numbers come out of the same seeds
+as from the reference's machine.  The closed race on tensors runs in
+:mod:`repro_torch.smt.scan_engine`, the open system's device engine in
+:mod:`repro_torch.online.device_sim`.
 
 Ground-truth interference model (policies never see this).  For application
 *i* in phase ``p`` co-running with *j* in phase ``q``, the per-instruction
@@ -24,11 +32,16 @@ j = sum(c') / sum(c).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import math
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.obs import trace as obs_trace
 from repro_torch.smt.apps import AppProfile, Phase
+
+Pair = Tuple[int, int]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +126,15 @@ def corun_components(
         + params.e_be * app_i.mem_sens * m * cpi
     )
     return out
+
+
+def true_slowdown(
+    phase_i: Phase, app_i: AppProfile, phase_j: Phase, params: MachineParams
+) -> float:
+    """Oracle slowdown of i when co-scheduled with j (>= 1)."""
+    solo = _components_per_inst(phase_i).sum()
+    smt = corun_components(phase_i, app_i, phase_j, params).sum()
+    return float(smt / solo)
 
 
 def pmu_readout(
@@ -245,8 +267,13 @@ def pmu_counters_batched(
     params: MachineParams,
     rng: np.random.Generator,
     noisy: bool = True,
+    draw_order: Optional[np.ndarray] = None,
 ) -> np.ndarray:
-    """Batched :func:`pmu_readout`: (K, 4) comps -> (K, 5) counter rows."""
+    """Batched :func:`pmu_readout`: (K, 4) comps -> (K, 5) counter rows.
+
+    ``draw_order`` fixes which app consumes which noise draw; passing the
+    scalar loop's visit order makes the batched counters bit-identical.
+    """
     k = comps.shape[0]
     cpi = comps.sum(axis=-1)
     insts = cycles / cpi
@@ -260,7 +287,13 @@ def pmu_counters_batched(
     out[:, 3] = insts
     out[:, 4] = insts * retire
     if noisy:
-        out[:, 1:5] *= rng.lognormal(0.0, params.noise_sigma, size=(k, 4))
+        draws = rng.lognormal(0.0, params.noise_sigma, size=(k, 4))
+        if draw_order is not None:
+            noise = np.empty_like(draws)
+            noise[draw_order] = draws
+        else:
+            noise = draws
+        out[:, 1:5] *= noise
     return out
 
 
@@ -269,24 +302,72 @@ class _AppState:
     profile: AppProfile
     phase_idx: int = 0
     phase_left: float = 0.0         # quanta remaining in current phase
+    progress: float = 0.0           # retired instructions, current launch
+    target: float = 0.0             # retired-instruction target (§6.2)
+    first_finish_q: float = math.inf  # quantum index (fractional) of 1st finish
+    launches: int = 0
+    total_retired: float = 0.0
+    total_cycles: float = 0.0
 
     def phase(self) -> Phase:
         return self.profile.phase(self.phase_idx)
 
 
-class SMTMachine:
-    """The machine's solo runs and §6.2 targets: what the profiling
-    campaign and the open system's job targets need.
+@dataclasses.dataclass
+class _VectorState:
+    """Array-of-struct counterpart of ``_AppState`` for the batched engine."""
 
-    The closed race runs in :mod:`repro_torch.smt.scan_engine`, the open
-    system in :mod:`repro_torch.online.device_sim`.
-    """
+    phase_idx: np.ndarray
+    phase_left: np.ndarray
+    progress: np.ndarray
+    target: np.ndarray
+    first_finish_q: np.ndarray
+    launches: np.ndarray
+    total_retired: np.ndarray
+    total_cycles: np.ndarray
+
+    @classmethod
+    def init(cls, tables: PhaseTables, targets: np.ndarray) -> "_VectorState":
+        n = tables.n_apps
+        return cls(
+            phase_idx=np.zeros(n, np.int64),
+            phase_left=tables.duration[:, 0].copy(),
+            progress=np.zeros(n),
+            target=np.asarray(targets, np.float64),
+            first_finish_q=np.full(n, np.inf),
+            launches=np.zeros(n, np.int64),
+            total_retired=np.zeros(n),
+            total_cycles=np.zeros(n),
+        )
+
+    @classmethod
+    def empty(cls, n_slots: int) -> "_VectorState":
+        """Blank per-slot state for the open system (``repro_torch.online``).
+
+        Slots are populated incrementally as applications are admitted; the
+        simulator owns per-slot (re)initialisation on admission/departure.
+        """
+        return cls(
+            phase_idx=np.zeros(n_slots, np.int64),
+            phase_left=np.zeros(n_slots),
+            progress=np.zeros(n_slots),
+            target=np.full(n_slots, np.inf),
+            first_finish_q=np.full(n_slots, np.inf),
+            launches=np.zeros(n_slots, np.int64),
+            total_retired=np.zeros(n_slots),
+            total_cycles=np.zeros(n_slots),
+        )
+
+
+class SMTMachine:
+    """Discrete-quantum simulator of an N-core, 2-way-SMT processor."""
 
     def __init__(self, params: MachineParams = MachineParams(), seed: int = 0):
         self.params = params
         self.rng = np.random.default_rng(seed)
         self._solo_rate_cache: Dict[str, float] = {}
 
+    # ------------------------------------------------------------------ solo
     def run_solo(
         self,
         profile: AppProfile,
@@ -329,6 +410,533 @@ class SMTMachine:
         """§6.2: instructions committed in the solo reference period."""
         return self.solo_retire_rate(profile) * self.params.solo_reference_quanta
 
+    # ------------------------------------------------------------ workload
+    def run_workload(
+        self,
+        profiles: Sequence[AppProfile],
+        policy,
+        seed: int = 0,
+        max_quanta: int = 5000,
+        engine: str = "vector",
+    ) -> "WorkloadResult":
+        """Run a workload under ``policy`` until every app reaches its target.
+
+        Implements the paper's §6.2 methodology: targets from the solo
+        reference run; early finishers are relaunched so the machine load is
+        constant; the run ends when the *slowest first launch* completes.
+
+        ``engine="vector"`` (default) runs each quantum as a batched array
+        computation over all N apps; ``engine="loop"`` is the original
+        per-app reference loop.  Both consume the RNG stream identically and
+        produce bit-identical results.
+        """
+        if engine == "vector":
+            return self._run_workload_vector(profiles, policy, seed, max_quanta)
+        assert engine == "loop", engine
+        n = len(profiles)
+        assert n % 2 == 0, "need an even number of applications"
+        rng = np.random.default_rng(seed)
+        states = []
+        for p in profiles:
+            st = _AppState(profile=p, target=self.target_instructions(p))
+            st.phase_left = p.phase(0).duration
+            states.append(st)
+
+        policy.reset(n_apps=n, rng=np.random.default_rng(seed + 7919), machine=self)
+        self._active_states = states  # exposed only for the Oracle baseline
+        self._vector_ctx = None
+        samples: List[Optional[PMUSample]] = [None] * n
+        pairs: List[Pair] = []
+        q = 0
+        while q < max_quanta and any(math.isinf(s.first_finish_q) for s in states):
+            pairs = policy.schedule(q, samples, pairs)
+            assert sorted(x for p2 in pairs for x in p2) == list(range(n))
+            new_samples: List[Optional[PMUSample]] = [None] * n
+            for (i, j) in pairs:
+                for (a, b) in ((i, j), (j, i)):
+                    st, co = states[a], states[b]
+                    comps = corun_components(
+                        st.phase(), st.profile, co.phase(), self.params
+                    )
+                    cpi = comps.sum()
+                    retired = (
+                        self.params.quantum_cycles / cpi * st.profile.retire
+                    )
+                    before = st.progress
+                    st.progress += retired
+                    st.total_retired += retired
+                    st.total_cycles += self.params.quantum_cycles
+                    if math.isinf(st.first_finish_q) and st.progress >= st.target:
+                        frac = (st.target - before) / max(retired, 1e-9)
+                        st.first_finish_q = q + min(max(frac, 0.0), 1.0)
+                    if st.progress >= st.target:
+                        # Relaunch (constant machine load, §6.2).
+                        st.progress -= st.target
+                        st.launches += 1
+                        st.phase_idx = 0
+                        st.phase_left = st.profile.phase(0).duration
+                    new_samples[a] = pmu_readout(
+                        comps, st.profile, st.phase(),
+                        self.params.quantum_cycles, self.params, rng,
+                    )
+            for st in states:
+                self._advance_phase(st, rng)
+            samples = new_samples
+            q += 1
+
+        tt = np.array(
+            [
+                min(s.first_finish_q, float(max_quanta)) * self.params.quantum_s
+                for s in states
+            ]
+        )
+        solo_tt = np.array(
+            [
+                s.target / self.solo_retire_rate(s.profile) * self.params.quantum_s
+                for s in states
+            ]
+        )
+        # Whole-run IPC (includes relaunches): a throughput metric that can
+        # move opposite to turnaround time, as the paper observes for CFS.
+        ipc = np.array(
+            [s.total_retired / max(s.total_cycles, 1.0) for s in states]
+        )
+        return WorkloadResult(
+            app_names=[s.profile.name for s in states],
+            turnaround_s=tt,
+            solo_turnaround_s=solo_tt,
+            ipc=ipc,
+            quanta=q,
+            completed=all(not math.isinf(s.first_finish_q) for s in states),
+        )
+
+    # ------------------------------------------------- vectorised workload
+    def _run_workload_vector(
+        self,
+        profiles: Sequence[AppProfile],
+        policy,
+        seed: int,
+        max_quanta: int,
+    ) -> "WorkloadResult":
+        n = len(profiles)
+        assert n % 2 == 0, "need an even number of applications"
+        rng = np.random.default_rng(seed)
+        tables = PhaseTables.build(profiles)
+        targets = np.array([self.target_instructions(p) for p in profiles])
+        st = _VectorState.init(tables, targets)
+
+        policy.reset(n_apps=n, rng=np.random.default_rng(seed + 7919), machine=self)
+        self._active_states = None
+        self._vector_ctx = (tables, st)
+        try:
+            samples: List[Optional[PMUSample]] = [None] * n
+            pairs: List[Pair] = []
+            q = 0
+            while q < max_quanta and np.isinf(st.first_finish_q).any():
+                pairs = policy.schedule(q, samples, pairs)
+                pa = np.asarray(pairs, dtype=np.int64)
+                assert pa.shape == (n // 2, 2) and np.array_equal(
+                    np.sort(pa.ravel()), np.arange(n)
+                ), "policy must return a perfect pairing"
+                # Policies receive the raw (N, 5) counter matrix; the scalar
+                # engine passes a list of PMUSample — schedulers accept both.
+                samples = self._vector_quantum(tables, st, pa, rng, q)
+                self._advance_phases_vector(tables, st, rng)
+                q += 1
+        finally:
+            self._vector_ctx = None
+
+        tt = np.minimum(st.first_finish_q, float(max_quanta)) * self.params.quantum_s
+        solo_tt = np.array(
+            [
+                t / self.solo_retire_rate(p) * self.params.quantum_s
+                for t, p in zip(targets, profiles)
+            ]
+        )
+        ipc = st.total_retired / np.maximum(st.total_cycles, 1.0)
+        return WorkloadResult(
+            app_names=[p.name for p in profiles],
+            turnaround_s=tt,
+            solo_turnaround_s=solo_tt,
+            ipc=ipc,
+            quanta=q,
+            completed=bool(np.isfinite(st.first_finish_q).all()),
+        )
+
+    def _vector_quantum(
+        self,
+        tables: PhaseTables,
+        st: _VectorState,
+        pairs: np.ndarray,
+        rng: np.random.Generator,
+        q: int,
+        solo: int = -1,
+    ) -> np.ndarray:
+        """Advance every app by one quantum; return the (N, 5) PMU counters.
+
+        The scalar loop updates each pair's first thread before computing the
+        second thread's components, so a relaunch of the first thread resets
+        the phase its partner sees *within the same quantum*; the two-step
+        split below reproduces that ordering exactly.
+
+        ``solo`` (odd populations) names the slot running alone on its core
+        this quantum: it executes interference-free and, by convention,
+        consumes its noise draw last (after every paired app).
+        """
+        n = tables.n_apps
+        firsts, seconds = pairs[:, 0], pairs[:, 1]
+        ph_pre = st.phase_idx % tables.n_phases
+        comps = np.empty((n, 4))
+        comps[firsts] = corun_components_batched(
+            tables, firsts, ph_pre[firsts], seconds, ph_pre[seconds], self.params
+        )
+        self._apply_progress(tables, st, firsts, comps[firsts], q)
+        ph_mid = st.phase_idx % tables.n_phases
+        comps[seconds] = corun_components_batched(
+            tables, seconds, ph_pre[seconds], firsts, ph_mid[firsts], self.params
+        )
+        self._apply_progress(tables, st, seconds, comps[seconds], q)
+        draw_order = pairs.ravel()
+        if solo >= 0:
+            sidx = np.array([solo], np.int64)
+            comps[sidx] = corun_components_batched(
+                tables, sidx, ph_pre[sidx], None, None, self.params
+            )
+            self._apply_progress(tables, st, sidx, comps[sidx], q)
+            draw_order = np.concatenate([draw_order, sidx])
+        return pmu_counters_batched(
+            comps, tables.omega, tables.retire, self.params.quantum_cycles,
+            self.params, rng, noisy=True, draw_order=draw_order,
+        )
+
+    def _apply_progress(
+        self,
+        tables: PhaseTables,
+        st: _VectorState,
+        idx: np.ndarray,
+        comps: np.ndarray,
+        q: int,
+    ) -> None:
+        """Instruction advance + §6.2 finish/relaunch bookkeeping for ``idx``."""
+        cpi = comps.sum(axis=-1)
+        retired = self.params.quantum_cycles / cpi * tables.retire[idx]
+        before = st.progress[idx]
+        after = before + retired
+        st.total_retired[idx] += retired
+        st.total_cycles[idx] += self.params.quantum_cycles
+        target = st.target[idx]
+        done = after >= target
+        newly = np.isinf(st.first_finish_q[idx]) & done
+        if newly.any():
+            frac = (target[newly] - before[newly]) / np.maximum(
+                retired[newly], 1e-9
+            )
+            st.first_finish_q[idx[newly]] = q + np.clip(frac, 0.0, 1.0)
+        if done.any():
+            # Relaunch (constant machine load, §6.2).
+            ridx = idx[done]
+            after[done] -= target[done]
+            st.launches[ridx] += 1
+            st.phase_idx[ridx] = 0
+            st.phase_left[ridx] = tables.duration[ridx, 0]
+        st.progress[idx] = after
+
+    def _advance_phases_vector(
+        self, tables: PhaseTables, st: _VectorState, rng: np.random.Generator
+    ) -> None:
+        st.phase_left -= 1.0
+        (done,) = np.nonzero(st.phase_left <= 0.0)
+        for k in done:  # ascending order matches the scalar loop's rng draws
+            st.phase_idx[k] += 1
+            lam = tables.duration[k, st.phase_idx[k] % tables.n_phases[k]]
+            st.phase_left[k] = float(max(1, rng.poisson(lam)))
+
+    def oracle_cost_matrix(self) -> Optional[np.ndarray]:
+        """Ground-truth symmetric pair-cost matrix of the *running* workload.
+
+        Only available while the vectorised engine is mid-run (the Oracle
+        baseline's cheat path); returns None otherwise.
+        """
+        ctx = getattr(self, "_vector_ctx", None)
+        if ctx is None:
+            return None
+        tables, st = ctx
+        n = tables.n_apps
+        ph = st.phase_idx % tables.n_phases
+        idx = np.arange(n)
+        ii = np.repeat(idx, n)
+        jj = np.tile(idx, n)
+        comps = corun_components_batched(
+            tables, ii, ph[ii], jj, ph[jj], self.params
+        )
+        solo = tables.comps[idx, ph].sum(axis=-1)
+        slow = comps.sum(axis=-1).reshape(n, n) / solo[:, None]
+        sym = slow + slow.T
+        np.fill_diagonal(sym, 1e9)
+        return sym
+
+    # ------------------------------------------------- open-system quantum
+    def open_quantum(
+        self,
+        tables: PhaseTables,
+        app_id: np.ndarray,
+        st: _VectorState,
+        pairs: np.ndarray,
+        solo: np.ndarray,
+        rng: np.random.Generator,
+        q: int,
+        speed: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """One quantum of an *open* system (the host engine of
+        ``repro_torch.online.sim``).
+
+        Unlike the closed-system quantum, membership is masked: only the
+        slots named by ``pairs``/``solo`` execute, applications that reach
+        their retired-instruction target *depart* (no §6.2 relaunch), and an
+        odd population leaves one application on a core with an idle second
+        context (``solo``), where it runs interference-free.
+
+        tables:  :class:`PhaseTables` of the application *pool*;
+        app_id:  (C,) pool row occupying each slot (-1 = empty slot);
+        st:      per-slot :class:`_VectorState`; ``target`` holds absolute
+                 retired-instruction targets (departure, not relaunch);
+        pairs:   (K, 2) slot pairs sharing a core this quantum;
+        solo:    (S,) slots running alone this quantum;
+        speed:   optional (C,) per-slot capability multiplier (straggler
+                 cores, ``repro_torch.online.faults``): retired instructions
+                 scale by it, PMU counters and interference do not — the
+                 model is a clock-throttled core.  ``None`` (the default)
+                 is the nominal machine, not a multiply-by-one.
+
+        Returns ``(counters, finished)``: the (C, 5) PMU counter matrix
+        (rows of inactive slots are zero) and a (C,) bool mask of slots whose
+        application reached its target this quantum (``first_finish_q`` is
+        set to the fractional completion quantum; the caller frees the slot).
+
+        Determinism convention: counter-noise draws and phase-advance
+        poisson draws are consumed in ascending slot order, so a run is a
+        pure function of (workload, arrivals, policy, seed).
+        """
+        n_slots = app_id.shape[0]
+        pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+        solo = np.asarray(solo, np.int64).reshape(-1)
+        active = np.sort(np.concatenate([pairs.ravel(), solo]))
+        assert active.size == np.unique(active).size, "slot scheduled twice"
+        assert active.size == 0 or (
+            active[0] >= 0 and active[-1] < n_slots
+        ), "slot index out of range"
+        assert (app_id[active] >= 0).all(), "scheduled an empty slot"
+        counters = np.zeros((n_slots, 5))
+        finished = np.zeros(n_slots, bool)
+        if active.size == 0:
+            return counters, finished
+
+        aid = app_id[active]
+        comps = np.empty((n_slots, 4))
+        if pairs.size:
+            a, b = pairs[:, 0], pairs[:, 1]
+            ph_a = st.phase_idx[a] % tables.n_phases[app_id[a]]
+            ph_b = st.phase_idx[b] % tables.n_phases[app_id[b]]
+            comps[a] = corun_components_batched(
+                tables, app_id[a], ph_a, app_id[b], ph_b, self.params
+            )
+            comps[b] = corun_components_batched(
+                tables, app_id[b], ph_b, app_id[a], ph_a, self.params
+            )
+        if solo.size:
+            ph_s = st.phase_idx[solo] % tables.n_phases[app_id[solo]]
+            comps[solo] = corun_components_batched(
+                tables, app_id[solo], ph_s, None, None, self.params
+            )
+
+        # Instruction advance + departure bookkeeping (no relaunch).
+        cpi = comps[active].sum(axis=-1)
+        retired = self.params.quantum_cycles / cpi * tables.retire[aid]
+        if speed is not None:
+            retired = retired * np.asarray(speed, np.float64)[active]
+        before = st.progress[active]
+        after = before + retired
+        st.progress[active] = after
+        st.total_retired[active] += retired
+        st.total_cycles[active] += self.params.quantum_cycles
+        done = after >= st.target[active]
+        if done.any():
+            d_slots = active[done]
+            frac = (st.target[active][done] - before[done]) / np.maximum(
+                retired[done], 1e-9
+            )
+            st.first_finish_q[d_slots] = q + np.clip(frac, 0.0, 1.0)
+            finished[d_slots] = True
+
+        counters[active] = pmu_counters_batched(
+            comps[active], tables.omega[aid], tables.retire[aid],
+            self.params.quantum_cycles, self.params, rng, noisy=True,
+        )
+
+        # Phase advance for survivors only (departed apps leave at quantum
+        # end); poisson draws happen per transitioning slot, ascending.
+        survivors = active[~done]
+        st.phase_left[survivors] -= 1.0
+        (idx,) = np.nonzero(st.phase_left[survivors] <= 0.0)
+        for k in survivors[idx]:
+            st.phase_idx[k] += 1
+            pid = app_id[k]
+            lam = tables.duration[pid, st.phase_idx[k] % tables.n_phases[pid]]
+            st.phase_left[k] = float(max(1, rng.poisson(lam)))
+        return counters, finished
+
+    # ------------------------------------------------- fixed-horizon mode
+    def run_quanta(
+        self,
+        profiles: Sequence[AppProfile],
+        policy,
+        n_quanta: int = 20,
+        seed: int = 0,
+        tables: Optional[PhaseTables] = None,
+    ) -> "ThroughputResult":
+        """Run exactly ``n_quanta`` quanta (no §6.2 targets) — throughput mode.
+
+        The cluster-scale scenario uses this to race policies at N in the
+        thousands, where running every app to its solo-reference target would
+        take hours.  Reports aggregate IPC, the mean true slowdown of the
+        chosen pairings, and scheduling/machine wall-times per quantum.
+
+        Odd populations follow the idle-context convention of the open
+        system (``repro_torch.online``): the policy returns ``(n - 1) // 2``
+        pairs and the uncovered application runs alone on its core —
+        interference-free, slowdown 1 — that quantum.  Closed and open
+        systems therefore accept the same workloads.
+
+        ``tables`` lets callers share one :class:`PhaseTables` build across
+        several runs of the same workload (see :meth:`run_quanta_multi`).
+        """
+        n = len(profiles)
+        rng = np.random.default_rng(seed)
+        tables = tables if tables is not None else PhaseTables.build(profiles)
+        assert tables.n_apps == n, "tables do not match the workload"
+        st = _VectorState.init(tables, np.full(n, np.inf))
+
+        policy.reset(n_apps=n, rng=np.random.default_rng(seed + 7919), machine=self)
+        self._active_states = None
+        self._vector_ctx = (tables, st)
+        sched_s = 0.0
+        sched_each: List[float] = []
+        machine_s = 0.0
+        slowdown_sum = 0.0
+        try:
+            samples: List[Optional[PMUSample]] = [None] * n
+            pairs: List[Pair] = []
+            for q in range(n_quanta):
+                t0 = time.perf_counter()
+                with obs_trace.span("machine.schedule", q=q):
+                    pairs = policy.schedule(q, samples, pairs)
+                t1 = time.perf_counter()
+                sched_s += t1 - t0
+                sched_each.append(t1 - t0)
+                pa = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+                covered = np.sort(pa.ravel())
+                assert pa.shape == (n // 2, 2) and np.unique(
+                    covered
+                ).size == covered.size and (
+                    covered >= 0
+                ).all() and (covered < n).all(), (
+                    "policy must return a perfect pairing"
+                )
+                solo = -1
+                if n % 2 == 1:
+                    (uncov,) = np.nonzero(
+                        ~np.isin(np.arange(n), covered)
+                    )
+                    assert uncov.size == 1
+                    solo = int(uncov[0])
+                else:
+                    assert covered.size == n, (
+                        "policy must cover every application"
+                    )
+                # Ground-truth mean slowdown of the chosen pairing (the
+                # quality signal the race compares across policies); the
+                # solo slot of an odd population contributes slowdown 1.
+                ph = st.phase_idx % tables.n_phases
+                partner = np.arange(n, dtype=np.int64)
+                partner[pa[:, 0]] = pa[:, 1]
+                partner[pa[:, 1]] = pa[:, 0]
+                idx = np.arange(n)
+                co = partner != idx
+                smt = tables.comps[idx, ph].sum(axis=-1)
+                if co.any():
+                    smt[co] = corun_components_batched(
+                        tables, idx[co], ph[co], partner[co],
+                        ph[partner[co]], self.params
+                    ).sum(axis=-1)
+                solo_cpi = tables.comps[idx, ph].sum(axis=-1)
+                slowdown_sum += float(np.mean(smt / solo_cpi))
+                with obs_trace.span("machine.quantum", q=q):
+                    samples = self._vector_quantum(tables, st, pa, rng, q,
+                                                   solo=solo)
+                    self._advance_phases_vector(tables, st, rng)
+                machine_s += time.perf_counter() - t1
+        finally:
+            self._vector_ctx = None
+
+        ipc = st.total_retired / np.maximum(st.total_cycles, 1.0)
+        return ThroughputResult(
+            n_apps=n,
+            quanta=n_quanta,
+            ipc=ipc,
+            total_retired=float(st.total_retired.sum()),
+            mean_true_slowdown=slowdown_sum / max(n_quanta, 1),
+            sched_s_per_quantum=sched_s / max(n_quanta, 1),
+            sched_s_per_quantum_median=float(np.median(sched_each))
+            if sched_each else 0.0,
+            machine_s_per_quantum=machine_s / max(n_quanta, 1),
+        )
+
+    def run_quanta_multi(
+        self,
+        profiles: Sequence[AppProfile],
+        policies: Dict[str, "Callable[[], object]"],
+        n_quanta: int = 20,
+        seed: int = 0,
+        engine: str = "vector",
+        **scan_kwargs,
+    ) -> Dict[str, "ThroughputResult"]:
+        """Race K policies through one workload — one machine pass per policy.
+
+        The expensive workload setup (the Python-loop :meth:`PhaseTables.build`
+        over all N profiles, plus the solo-rate caches) is done once and
+        shared; every policy then runs with the machine RNG reset to the same
+        ``seed``, so all K passes face a bit-identical workload (same phase
+        transitions, same counter noise for identical pairings) and their
+        metrics differ only through the pairings each policy chose.
+
+        ``engine="scan"`` runs the whole K-policy race on tensors
+        (:func:`repro_torch.smt.scan_engine.run_quanta_scan`): the machine
+        quantum, the fused SYNPA step and the device matcher per quantum.
+        ``policies`` must then map names to
+        :class:`repro_torch.smt.scan_engine.ScanPolicy` specs (not
+        factories); ``scan_kwargs`` (``device``, ``draws``, ``repeats``,
+        ``telemetry``, ``app_telemetry``) pass through.  That engine draws
+        its noise from ``torch`` generators, not from this machine's
+        stream.
+        """
+        if engine == "scan":
+            from repro_torch.smt import scan_engine
+
+            return scan_engine.run_quanta_scan(
+                self.params, profiles, policies, n_quanta=n_quanta,
+                seed=seed, **scan_kwargs,
+            )
+        tables = PhaseTables.build(profiles)
+        assert engine == "vector", engine
+        return {
+            name: self.run_quanta(
+                profiles, factory(), n_quanta=n_quanta, seed=seed,
+                tables=tables,
+            )
+            for name, factory in policies.items()
+        }
+
+    # ------------------------------------------------------------------ misc
     def _advance_phase(self, st: _AppState, rng: np.random.Generator) -> None:
         st.phase_left -= 1.0
         if st.phase_left <= 0.0:
@@ -342,6 +950,28 @@ def _ipc_geomean(ipc: np.ndarray) -> float:
 
 
 @dataclasses.dataclass
+class WorkloadResult:
+    app_names: List[str]
+    turnaround_s: np.ndarray        # per-app turnaround time (first launch)
+    solo_turnaround_s: np.ndarray   # per-app solo reference time
+    ipc: np.ndarray                 # per-app IPC over its first launch
+    quanta: int
+    completed: bool
+
+    @property
+    def avg_turnaround_s(self) -> float:
+        return float(self.turnaround_s.mean())
+
+    @property
+    def makespan_s(self) -> float:
+        return float(self.turnaround_s.max())
+
+    @property
+    def ipc_geomean(self) -> float:
+        return _ipc_geomean(self.ipc)
+
+
+@dataclasses.dataclass
 class ThroughputResult:
     """Fixed-horizon metrics of one policy in a cluster-scale race."""
 
@@ -351,6 +981,11 @@ class ThroughputResult:
     total_retired: float            # machine-wide retired instructions
     mean_true_slowdown: float       # ground-truth pairing quality (lower=better)
     machine_s_per_quantum: float    # race wall-time per quantum (all policies)
+    #: The host race (:meth:`SMTMachine.run_quanta`): mean and median
+    #: policy wall-time per quantum (the scan engine's policy time is
+    #: inside ``machine_s_per_quantum``, so it leaves these at 0).
+    sched_s_per_quantum: float = 0.0
+    sched_s_per_quantum_median: float = 0.0
     #: Per-quantum telemetry ring (``repro_torch.obs.telemetry.
     #: TelemetryLog``) when the race ran with ``telemetry=True``.
     telemetry: Optional[object] = None

@@ -1,20 +1,90 @@
-"""Open-system metrics (numpy): per-job records and their distributions.
+"""Evaluation metrics (numpy): the port's copy of ``repro.smt.metrics``.
 
-The port's own copy of what the open system needs from
-``repro.smt.metrics``.  In the open system applications arrive, run to an
-instruction target and depart, so the closed-system headline (mean
-turnaround of a fixed workload) is replaced by per-*job* records:
+Closed workloads (§6.2): turnaround time, IPC geomean and repeat-run
+averaging.  The paper repeats every workload >= 10 times, computes the
+coefficient of variation of the execution times, discards outliers and
+averages the rest; :func:`run_repeated` does the same at a scaled repeat
+count.
+
+Open system: applications arrive, run to an instruction target and
+depart, so the closed-system headline is replaced by per-*job* records:
 turnaround, slowdown (turnaround over solo time, queueing included), queue
-depth over time, and the policy's own cost per quantum.
+depth over time, and the policy's own cost per quantum; :class:`GridStats`
+aggregates runs over seeds with bootstrap intervals.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+@dataclasses.dataclass
+class PolicyWorkloadStats:
+    """Outlier-filtered averages over repeated runs of one (policy, workload)."""
+
+    avg_turnaround_s: float
+    makespan_s: float
+    ipc_geomean: float
+    n_runs: int
+    n_kept: int
+    cv: float
+
+
+def robust_mean(values: np.ndarray, trim_sigma: float = 1.5) -> np.ndarray:
+    """Discard runs whose headline value deviates > trim_sigma stddevs.
+
+    The paper's filter ("over mu +- 0.05 x sigma/mu") is stated in relative
+    terms; we use the standard sigma-clipping equivalent and record the CV.
+    """
+    mu, sd = values.mean(), values.std()
+    if sd == 0:
+        return np.ones(len(values), dtype=bool)
+    keep = np.abs(values - mu) <= trim_sigma * sd
+    if not keep.any():
+        keep[:] = True
+    return keep
+
+
+def run_repeated(
+    machine,
+    profiles,
+    policy_factory: Callable[[], object],
+    repeats: int = 5,
+    base_seed: int = 0,
+) -> PolicyWorkloadStats:
+    """Run one workload ``repeats`` times under a fresh policy instance."""
+    tts, mks, ipcs = [], [], []
+    for r in range(repeats):
+        res = machine.run_workload(
+            profiles, policy_factory(), seed=base_seed + 1000 * r
+        )
+        tts.append(res.avg_turnaround_s)
+        mks.append(res.makespan_s)
+        ipcs.append(res.ipc_geomean)
+    tts = np.array(tts); mks = np.array(mks); ipcs = np.array(ipcs)
+    keep = robust_mean(mks)
+    cv = float(mks.std() / max(mks.mean(), 1e-12))
+    return PolicyWorkloadStats(
+        avg_turnaround_s=float(tts[keep].mean()),
+        makespan_s=float(mks[keep].mean()),
+        ipc_geomean=float(ipcs[keep].mean()),
+        n_runs=repeats,
+        n_kept=int(keep.sum()),
+        cv=cv,
+    )
+
+
+def speedup(baseline: float, policy: float) -> float:
+    """TT speedup of a policy over a baseline (>1 means faster)."""
+    return baseline / max(policy, 1e-12)
+
+
+def geomean(xs: Sequence[float]) -> float:
+    return float(np.exp(np.mean(np.log(np.maximum(np.asarray(xs), 1e-12)))))
+
 
 
 @dataclasses.dataclass
@@ -74,8 +144,10 @@ class OnlineStats:
     active: np.ndarray              # (Q,) jobs holding a context
     policy_s: np.ndarray            # (Q,) policy wall-time per quantum
     solo_quanta: np.ndarray         # (Q,) apps running with an idle context
-    #: Per-quantum traffic timelines, rebuilt from the flat job logs
-    #: (:meth:`from_device_logs`).
+    #: Per-quantum traffic timelines.  The host loop counts these as it
+    #: goes; device runs rebuild them from the flat job logs
+    #: (:meth:`from_device_logs`), so both engines expose the same
+    #: timeline API.
     arrivals: Optional[np.ndarray] = None     # (Q,) jobs arrived
     admissions: Optional[np.ndarray] = None   # (Q,) jobs admitted
     departures: Optional[np.ndarray] = None   # (Q,) jobs departed
@@ -97,6 +169,10 @@ class OnlineStats:
     n_dropped: int = 0              # jobs that exhausted max_retries
     n_retry_waiting: int = 0        # jobs in retry backoff at horizon end
     n_in_flight: int = 0            # jobs still on a context at horizon end
+    #: Host-loop detector diagnostics: per-quantum count of cores the
+    #: ``repro_torch.ft.StragglerDetector`` EWMA state machine currently
+    #: flags.  Host loop only (the device engine has no EWMA state).
+    straggler_flags: Optional[np.ndarray] = None
 
     @property
     def n_evicted(self) -> int:
@@ -289,3 +365,83 @@ class OnlineStats:
                 ) if self.completed else 0.0,
             })
         return out
+
+
+def bootstrap_ci(values: Sequence[float], n_boot: int = 2000,
+                 alpha: float = 0.05, seed: int = 0,
+                 stat: Callable = np.mean) -> Tuple[float, float, float]:
+    """``(point, lo, hi)`` — percentile-bootstrap confidence interval of
+    ``stat`` over ``values`` (seeded, so recorded CIs are reproducible).
+
+    The point estimate is ``stat`` of the sample itself; ``lo``/``hi``
+    are the ``alpha/2`` / ``1 - alpha/2`` percentiles of ``n_boot``
+    bootstrap replicates.  A sample of one collapses to a degenerate
+    ``[point, point]`` interval — single-seed callers stay valid, they
+    just carry no width.  ``stat`` must accept an ``axis`` argument
+    (``np.mean``/``np.median`` do)."""
+    vals = np.asarray(list(values), np.float64)
+    if vals.size == 0:
+        return float("nan"), float("nan"), float("nan")
+    point = float(stat(vals))
+    if vals.size == 1:
+        return point, point, point
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, vals.size, size=(int(n_boot), vals.size))
+    reps = stat(vals[idx], axis=1)
+    lo, hi = np.percentile(reps, [100.0 * alpha / 2,
+                                  100.0 * (1.0 - alpha / 2)])
+    return point, float(lo), float(hi)
+
+
+@dataclasses.dataclass
+class GridStats:
+    """Multi-seed aggregation of a scenario grid — the statistics layer
+    of the batched simulator (``repro_torch.online.batch_sim``).
+
+    Each *cell* (a scenario label: policy, load point, admission…) holds
+    the per-seed :class:`OnlineStats` runs of that scenario;
+    :meth:`summary` reduces every flat metric of
+    :meth:`OnlineStats.summary` to a mean plus a seeded percentile-
+    bootstrap CI, the shape the recorded churn-grid JSONs carry
+    (``benchmarks/online_churn.py --seeds K``)."""
+
+    cells: Dict[str, List[OnlineStats]] = dataclasses.field(
+        default_factory=dict
+    )
+
+    def add(self, cell: str, stats: OnlineStats) -> None:
+        self.cells.setdefault(cell, []).append(stats)
+
+    def summary(self, n_boot: int = 2000, alpha: float = 0.05,
+                seed: int = 0) -> Dict[str, Dict[str, object]]:
+        """``{cell: {metric: mean, ..., "ci": {metric: [lo, hi]},
+        "seeds": K}}`` — metric means stay top-level floats so existing
+        readers of single-seed summaries keep working unchanged."""
+        out: Dict[str, Dict[str, object]] = {}
+        for cell, runs in self.cells.items():
+            summaries = [r.summary() for r in runs]
+            keys = [k for k in summaries[0]
+                    if all(k in s for s in summaries)]
+            entry: Dict[str, object] = {}
+            ci: Dict[str, List[float]] = {}
+            for k in keys:
+                vals = [float(s[k]) for s in summaries]
+                point, lo, hi = bootstrap_ci(
+                    vals, n_boot=n_boot, alpha=alpha, seed=seed
+                )
+                entry[k] = point
+                ci[k] = [lo, hi]
+            entry["ci"] = ci
+            entry["seeds"] = len(runs)
+            out[cell] = entry
+        return out
+
+    def pooled_slowdowns(self, cell: str) -> np.ndarray:
+        """All completed-job slowdowns of a cell, pooled across seeds —
+        the sample the cross-seed CCDF is computed on."""
+        runs = self.cells.get(cell, [])
+        return np.concatenate(
+            [np.asarray([j.slowdown(r.quantum_s) for j in r.completed],
+                        np.float64)
+             for r in runs]
+        ) if runs else np.zeros(0)

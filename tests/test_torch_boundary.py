@@ -88,9 +88,19 @@ def _params_tree(model):
 @pytest.mark.parametrize("entry", [
     "resolve_device", "run_quanta_scan", "build_all_models",
     "category_model_from_numpy", "device_tables_from_numpy", "build_model",
-    "serve_demo", "model_params_from_numpy"])
+    "serve_demo", "model_params_from_numpy", "SynpaScheduler",
+    "make_synpa_pipeline", "StreamingAllocator", "StreamingScheduler",
+    "ClusterSim(engine='host')", "inverse"])
 def test_entry_points_raise_without_gpu(no_gpu, entry):
+    from repro_torch.core import regression, synpa
+    from repro_torch.online import (ClusterSim, LinuxOnline, PoissonArrivals,
+                                    StreamingAllocator, StreamingScheduler)
+
     profs, pols = _tiny()
+    toy = convert.category_model_from_numpy(
+        np.eye(4, dtype=np.float32)[:, [1, 0, 2, 3]], np.zeros(4), 4,
+        device="cpu")
+    frac = np.full((3, 4), 0.25, np.float32)
     cfg = get_config("qwen1.5-0.5b", smoke=True, dtype="float32",
                      param_dtype="float32")
     calls = {
@@ -114,6 +124,18 @@ def test_entry_points_raise_without_gpu(no_gpu, entry):
         "model_params_from_numpy": lambda **kw:
             convert.model_params_from_numpy(
                 _params_tree(build_model(cfg, device="cpu")), cfg, **kw),
+        "SynpaScheduler": lambda **kw: synpa.SynpaScheduler(
+            isc.SYNPA4_R_FEBE, toy, **kw),
+        "make_synpa_pipeline": lambda **kw: synpa.make_synpa_pipeline(
+            isc.SYNPA4_R_FEBE, toy, **kw),
+        "StreamingAllocator": lambda **kw: StreamingAllocator(
+            isc.SYNPA4_R_FEBE, toy, **kw),
+        "StreamingScheduler": lambda **kw: StreamingScheduler(
+            isc.SYNPA4_R_FEBE, toy, **kw),
+        "ClusterSim(engine='host')": lambda **kw: ClusterSim(
+            machine.SMTMachine(), profs, 2, LinuxOnline(),
+            PoissonArrivals(rate=1.0, n_pool=len(profs)), **kw).run(2),
+        "inverse": lambda **kw: regression.inverse(toy, frac, frac, **kw),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -314,7 +314,14 @@ def test_cpu_run_launches_no_kernel(runs):
 def test_what_is_not_ported_raises(env):
     pool = env["tpool"]
     arr = PoissonArrivals(rate=1.0, n_pool=len(pool))
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # The host event loop is ported (open item 4): it runs an online
+    # policy, and refuses a device-engine spec.
+    from repro_torch.online.allocator import AdjacentOnline
+
+    host = ClusterSim(env["tmach"], pool, 2, AdjacentOnline(), arr,
+                      device="cpu")
+    assert host.run(4).quanta == 4
+    with pytest.raises(ValueError, match="OnlinePolicy"):
         ClusterSim(env["tmach"], pool, 2, ScanPolicy(kind="adjacent"), arr,
                    device="cpu")
     sim = ClusterSim(env["tmach"], pool, 2, ScanPolicy(kind="adjacent"), arr,
