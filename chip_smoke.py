@@ -158,7 +158,37 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    23, syncs (``synpa4-stream`` must beat ``LinuxOnline`` on mean
    slowdown), phase 13's numbers printed beside; then capacity 16 on the
    card against the CPU: the same pairs every quantum, integer logs
-   identical, finish quanta within rtol 1e-5.
+   identical, finish quanta within rtol 1e-5;
+25. training, card against CPU: qwen1.5-0.5b at full width and depth 2,
+   then qwen2-moe-a2.7b at full width and depth 1, float32, the same
+   seeded weights and ``SyntheticLM`` batches, three ``train_step``s
+   (learning rate 0 at step 1, 1e-4 from step 2): losses and ``aux``
+   within rtol 1e-4, every parameter and first moment after step 3
+   within 1e-4 of its tensor's largest |value| (the QKV biases, which
+   start at zero and so hold only AdamW's normalised steps, within the
+   learning rates' sum), and for the moe the same dropped (token, slot)
+   pairs in every call;
+26. the training main path: ``launch.train.train("qwen1.5-0.5b",
+   smoke=False, steps=30, batch=8, seq=512)`` at full width and depth in
+   bfloat16, with every kernel's launch count set to 0 just before and
+   read just after (no launch: training runs plain attention) and its
+   host syncs audited (only the counted loss reads at ``log_every``): the
+   loss falls from the first log to the last; step wall (CUDA events
+   between step ends, median of the last 10), training tokens/s, peak
+   memory; one step under the profiler; ``grad_accum=2`` against
+   ``grad_accum=1`` on one batch at depth 2 in float32 (losses, first
+   moments, and parameters at lr 1e-5, within 1e-4); and a run killed
+   after its step-4 checkpoint and resumed to step 8, equal bit for bit
+   to 8 steps uninterrupted;
+27. the moe serving path's reference check: phase 9 for qwen2-moe-a2.7b
+   (full width, depth 2, float32, card against CPU);
+28. the moe main paths: phase 10 for qwen2-moe-a2.7b at full width and
+   depth (24 layers, bfloat16, ``attention_impl="kernel"``: exactly 24
+   ``flash_attention`` launches a prefill of 4 x 2048, then
+   ``serve_demo`` at its defaults), and ``train`` of qwen2-moe-a2.7b at
+   full width and depth 2 in bfloat16 (10 steps, batch 4, sequence 512),
+   counted and timed as in phase 26: the loss falls and ``aux`` stays
+   finite.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -227,6 +257,13 @@ RACE_SEEDS = (3, 4, 5)
 CKPT_SEG = 8
 #: Quanta of the open run profiled without and with rings (phase 20).
 RING_PROFILE_QUANTA = 6
+#: The training path (phases 25-26) and the moe family (27-28): the
+#: configurations, the main path's run (steps, batch, sequence) and the
+#: moe training depth (24 layers of AdamW state, about 14.3 B parameters x
+#: 12 bytes, would not fit the card's 80 GB).
+TRAIN_ARCH, MOE_ARCH = "qwen1.5-0.5b", "qwen2-moe-a2.7b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 512
+MOE_TRAIN_DEPTH, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH = 2, 10, 4
 #: Flash attention's edge cases: (B, Sq, Skv, Hq, Hkv, D, causal, window,
 #: q scale).  Lengths that are multiples of no tile, Sq != Skv both ways,
 #: GQA groups 1, 4 and 8, windows whose first key falls mid-tile, q scaled
@@ -679,7 +716,9 @@ def _serving_kernels_check(dev, rng):
         return err
 
     # flash_attention: the reference tests' shapes x three masks, one
-    # bfloat16 case, and the serving prefill's shape.
+    # bfloat16 case, the serving prefill's shape, and the moe prefill's
+    # shape and type (phase 28: qwen2-moe-a2.7b, 16 heads of 128,
+    # bfloat16).
     cases = [((b, s, hq, hkv, d), causal, window, torch.float32)
              for b, s, hq, hkv, d in ((1, 128, 1, 1, 64), (2, 256, 8, 2, 64),
                                       (1, 200, 8, 8, 128), (1, 384, 4, 1, 256))
@@ -689,6 +728,8 @@ def _serving_kernels_check(dev, rng):
     cases.append(((1, 256, 256, 4, 2, 64), True, 0, torch.bfloat16, 1.0))
     cases.append(((PREFILL_B, PREFILL_S, PREFILL_S, 16, 16, 64), True, 0,
                   torch.float32, 1.0))
+    cases.append(((PREFILL_B, PREFILL_S, PREFILL_S, 16, 16, 128), True, 0,
+                  torch.bfloat16, 1.0))
     # The tensor-core design's edges, in both types (as
     # tests/test_torch_attention_gpu.py::FLASH_EDGES): lengths that are
     # multiples of no tile, Sq != Skv, GQA groups 1, 4 and 8, windows
@@ -765,16 +806,16 @@ def _serving_kernels_check(dev, rng):
     return errs
 
 
-def _serving_reference(dev) -> None:
-    """Phase 9: the serving path at full width and depth 2, card against
-    CPU, the same seeded weights on both."""
+def _serving_reference(dev, arch: str = SERVE_ARCH) -> None:
+    """Phases 9 and 27: ``arch``'s serving path at full width and depth 2,
+    card against CPU, the same seeded weights on both."""
     import numpy as np
     import torch
 
     from repro_torch.models.registry import build_model, get_config
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = get_config(SERVE_ARCH, dtype="float32", param_dtype="float32",
+    cfg = get_config(arch, dtype="float32", param_dtype="float32",
                      n_layers=2, attention_impl="kernel")
     on_cpu = build_model(cfg, device="cpu", seed=0)
     on_card = copy.deepcopy(on_cpu).to(dev)
@@ -786,7 +827,7 @@ def _serving_reference(dev) -> None:
     err = float((got - want).abs().max())
     top2 = torch.topk(want[0], 2, dim=-1).values
     gap = float((top2[:, 0] - top2[:, 1]).min())
-    _line("reference", f"{SERVE_ARCH} depth 2, prefill 1 x 256: max |logit| "
+    _line("reference", f"{arch} depth 2, prefill 1 x 256: max |logit| "
           f"{scale:.4f}, max abs diff card vs CPU {err:.3e} (limit 1e-4 x "
           f"{scale:.4f}); least top-2 gap {gap:.4f}")
     if not (got.shape == want.shape and err <= 1e-4 * scale):
@@ -811,9 +852,13 @@ def _serving_reference(dev) -> None:
         raise AssertionError("serving generate: card and CPU tokens differ")
 
 
-def _serving_main_path(dev, kernel_mods):
-    """Phase 10: the serving main path at full width and depth.  Returns
-    every kernel's launches in it."""
+def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
+                       dtype: str = "float32"):
+    """Phases 10 and 28: ``arch``'s serving main path at full width and
+    depth in ``dtype``: one prefill, timings and profiles, then
+    ``serve_demo`` (its own float32 model, built once the prefill's model
+    is gone).  Returns every kernel's launches in the prefill and
+    ``serve_demo``."""
     import numpy as np
     import torch
 
@@ -821,7 +866,7 @@ def _serving_main_path(dev, kernel_mods):
     from repro_torch.models.registry import build_model, get_config
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = get_config(SERVE_ARCH, dtype="float32", param_dtype="float32",
+    cfg = get_config(arch, dtype=dtype, param_dtype=dtype,
                      attention_impl="kernel")
     model = build_model(cfg, device=dev, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
@@ -844,22 +889,13 @@ def _serving_main_path(dev, kernel_mods):
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("prefill logits not finite")
     del logits
-    demo = serve_demo(SERVE_ARCH, smoke=False, device=dev)
-    launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
-    _line("serve", f"{SERVE_ARCH} full width ({cfg.n_layers} layers, "
-          f"{n_params} parameters, float32): prefill {PREFILL_B} x "
+    _line("serve", f"{arch} full width ({cfg.n_layers} layers, "
+          f"{n_params} parameters, {dtype}): prefill {PREFILL_B} x "
           f"{PREFILL_S} first call {first_s:.3f} s, launches {prefill_launches}")
-    _line("serve", f"serve_demo: {demo['requests']} requests, {demo['tokens']} "
-          f"tokens in {demo['seconds']:.3f} s ({demo['tok_per_s']:.1f} tok/s);"
-          f" samples {demo['outputs']}")
-    _line("serve", f"launches over prefill + serve_demo: {launches}")
     if prefill_launches["flash_attention"] != cfg.n_layers:
         raise AssertionError(f"flash_attention launched "
                              f"{prefill_launches['flash_attention']} times in "
                              f"one prefill, expected {cfg.n_layers}")
-    if demo["requests"] != 12 or demo["tokens"] != 12 * 16:
-        raise AssertionError(f"serve_demo served {demo['requests']} requests, "
-                             f"{demo['tokens']} tokens")
 
     # Wall times (host clock, synchronised; median of 3 after a warm call).
     prefill_ms = _wall_ms(lambda: engine.prefill(batch))
@@ -891,7 +927,21 @@ def _serving_main_path(dev, kernel_mods):
             _line("profile", f"{label}: flash's {name}: "
                   f"{sum(dev_us(e) for e in mine) / 1e3:.3f} ms in "
                   f"{sum(e.count for e in mine)} launches")
-    del model, engine
+    del model, engine, cache
+    torch.cuda.empty_cache()
+
+    for mod in kernel_mods.values():
+        mod.LAUNCHES = 0
+    demo = serve_demo(arch, smoke=False, device=dev)
+    launches = {n: prefill_launches[n] + m.LAUNCHES
+                for n, m in kernel_mods.items()}
+    _line("serve", f"serve_demo: {demo['requests']} requests, {demo['tokens']} "
+          f"tokens in {demo['seconds']:.3f} s ({demo['tok_per_s']:.1f} tok/s);"
+          f" samples {demo['outputs']}")
+    _line("serve", f"launches over prefill + serve_demo: {launches}")
+    if demo["requests"] != 12 or demo["tokens"] != 12 * 16:
+        raise AssertionError(f"serve_demo served {demo['requests']} requests, "
+                             f"{demo['tokens']} tokens")
     torch.cuda.empty_cache()
     return launches
 
@@ -2815,6 +2865,387 @@ def _host_open(dev, model, kernel_mods, open_runs):
     return total
 
 
+class _StepClock:
+    """Wraps ``TrainStepBuilder.train_step`` while in use: a CUDA event
+    after each step (and one before the first), and each step's metrics
+    kept on the card.  Neither reads anything back to the host, so the
+    wrapped run keeps its syncs."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.train import step as step_mod
+
+        self.events, self.metrics = [], []
+        self._cls, self._orig = step_mod.TrainStepBuilder, \
+            step_mod.TrainStepBuilder.train_step
+        clock = self
+
+        def timed(builder, state, batch, **kw):
+            if not clock.events:
+                clock.events.append(torch.cuda.Event(enable_timing=True))
+                clock.events[0].record()
+            out = clock._orig(builder, state, batch, **kw)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            clock.events.append(ev)
+            clock.metrics.append(out[1])
+            return out
+
+        self._cls.train_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.train_step = self._orig
+        return False
+
+    def step_ms(self):
+        """Each step's time on the card's clock, end to end."""
+        import torch
+
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(self.events,
+                                                  self.events[1:])]
+
+
+#: The QKV biases start at zero, so after a few steps they hold AdamW's
+#: steps alone, each normalised to about the learning rate whatever the
+#: gradient's size.  The key bias is added before RoPE: in the dimensions
+#: that RoPE turns slowly a shift of every key barely changes the scores,
+#: so there its gradient is near zero, at the float error, and its sign
+#: follows the order of the sums.
+ZERO_INIT = ("attn.bq", "attn.bk", "attn.bv")
+
+
+def _gap(got, want, what: str, atol_of=lambda name: None) -> float:
+    """The largest error of ``got``'s tensors against ``want``'s, relative
+    to each tensor's largest |value|; raises past 1e-4.  A tensor for
+    which ``atol_of`` gives a number is held to that absolute error
+    instead."""
+    worst = 0.0
+    for name, p in want.items():
+        a = got[name].detach().float().cpu()
+        b = p.detach().float().cpu()
+        err = float((a - b).abs().max())
+        atol = atol_of(name)
+        if atol is not None:
+            if err > atol:
+                raise AssertionError(f"{what}: {name} off by {err:.3e}, past "
+                                     f"{atol:.3e}")
+            continue
+        rel = err / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, rel)
+        if rel > 1e-4:
+            raise AssertionError(f"{what}: {name} off by {rel:.3e} of its "
+                                 "largest |value| (limit 1e-4)")
+    return worst
+
+
+def _param_gap(got, want, lr_sum: float, what: str) -> float:
+    """Parameters: the QKV biases within the learning rates' sum."""
+    return _gap(got, want, what,
+                lambda n: lr_sum if n.endswith(ZERO_INIT) else None)
+
+
+def _moment_gap(got, want, what: str) -> float:
+    """First moments (a decayed sum of the gradients): the key bias's,
+    near zero in its slowly turning dimensions, within 1e-4 of the
+    largest first moment of all."""
+    top = max(float(t.abs().max()) for t in want.values())
+    return _gap(got, want, what,
+                lambda n: 1e-4 * top if n.endswith("attn.bk") else None)
+
+
+def _train_reference(dev) -> None:
+    """Phase 25: three training steps on the card against the same steps
+    on the CPU, float32, the same weights and batches."""
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import TrainStepBuilder
+
+    # AdamW moves every element by about the learning rate, whatever its
+    # gradient's size, so an element whose gradient is near its float
+    # error (the sums run in another order on the card) moves by another
+    # fraction of it: at lr 1e-3 the moe's attn.wo differed by 1.06e-4 of
+    # its largest |value| after 3 steps.  At lr 1e-4 a step is 0.2% of
+    # the weights' scale and that spread stays 10x under the limit.
+    lr = 1e-4
+    for arch, depth, batch, seq in ((TRAIN_ARCH, 2, 2, 128),
+                                    (MOE_ARCH, 1, 2, 64)):
+        cfg = get_config(arch, dtype="float32", param_dtype="float32",
+                         n_layers=depth)
+        on_cpu = build_model(cfg, device="cpu", seed=0)
+        on_card = copy.deepcopy(on_cpu).to(dev)
+        data = SyntheticLM(cfg.vocab_size, seq, batch, seed=0)
+        runs = {}
+        slots = moe_mod._slots
+        for side, model in (("cpu", on_cpu), ("card", on_card)):
+            builder = TrainStepBuilder(model, AdamWConfig(lr=lr),
+                                       warmup_steps=1, total_steps=10)
+            state = builder.fresh_state()
+            keeps, metrics = [], []
+
+            def recorded(topi, cfg_, c):
+                out = slots(topi, cfg_, c)
+                keeps.append(out[2].cpu())
+                return out
+
+            moe_mod._slots = recorded
+            try:
+                t0 = time.perf_counter()
+                for it in range(3):
+                    state, m = builder.train_step(state,
+                                                  data.global_batch_at(it))
+                    metrics.append({k: float(v) for k, v in m.items()})
+                secs = time.perf_counter() - t0
+            finally:
+                moe_mod._slots = slots
+            runs[side] = (metrics, state["params"], state["opt"]["mu"],
+                          keeps, secs)
+        (want, want_p, want_mu, want_k, cpu_s) = runs["cpu"]
+        (got, got_p, got_mu, got_k, card_s) = runs["card"]
+        for w, g in zip(want, got):
+            for key in ("loss", "aux"):
+                if not abs(g[key] - w[key]) <= 1e-4 * abs(w[key]):
+                    raise AssertionError(f"{arch} train: {key} card "
+                                         f"{g[key]!r} vs CPU {w[key]!r}")
+        lr_sum = sum(m["lr"] for m in want)
+        gap = _param_gap(got_p, want_p, lr_sum, f"{arch} train")
+        mu_gap = _moment_gap(got_mu, want_mu, f"{arch} train first moment")
+        same = (len(got_k) == len(want_k)
+                and all(torch.equal(a, b) for a, b in zip(got_k, want_k)))
+        dropped = [int((~k).sum()) for k in want_k]
+        _line("train-ref", f"{arch} full width depth {depth} float32, 3 "
+              f"steps of {batch} x {seq}: losses card "
+              f"{[m['loss'] for m in got]} CPU {[m['loss'] for m in want]}; "
+              f"aux card {[m['aux'] for m in got]}; lr {[m['lr'] for m in got]}"
+              f"; parameters within {gap:.3e} and first moments within "
+              f"{mu_gap:.3e} of each tensor's largest |value| (limit 1e-4; "
+              f"the QKV biases within the learning rates' sum); CPU "
+              f"{cpu_s:.1f} s, card {card_s:.1f} s")
+        if cfg.family == "moe":
+            _line("train-ref", f"{arch}: dropped (token, slot) pairs per "
+                  f"routing call {dropped} of {want_k[0].numel()}; identical "
+                  f"card vs CPU in all {len(want_k)} calls: {same}")
+            if not same:
+                raise AssertionError(f"{arch} train: the card dropped other "
+                                     "(token, slot) pairs than the CPU")
+        del on_cpu, on_card, runs
+        torch.cuda.empty_cache()
+
+
+def _train_run(dev, kernel_mods, arch: str, what: str, **kw):
+    """One ``launch.train.train`` run on the card with every kernel's
+    launch count set to 0 just before and read just after, its host syncs
+    audited (only the counted loss reads may sync), its steps clocked.
+    Returns (result, launches, step times ms, metrics, peak bytes)."""
+    import torch
+
+    from repro_torch.launch import train as train_mod
+
+    box = {}
+
+    def run():
+        box["out"] = train_mod.train(arch, smoke=False, device=dev, **kw)
+
+    for mod in kernel_mods.values():
+        mod.LAUNCHES = 0
+    reads0 = train_mod.LOSS_READS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _StepClock() as clock:
+        seen = _audited(run)
+    wall = time.perf_counter() - t0
+    launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+    peak = torch.cuda.max_memory_allocated()
+    out = box["out"]
+    reads = train_mod.LOSS_READS - reads0
+    step_ms = clock.step_ms()
+    _line("train", f"{what}: {len(step_ms)} steps in {wall:.3f} s (model "
+          f"build included); launches {launches}; host syncs {len(seen)}, "
+          f"loss reads counted {reads}")
+    if len(seen) != reads:
+        for msg in sorted(set(seen)):
+            _line("syncs", msg[:200])
+        raise AssertionError(f"{what}: {len(seen)} host syncs, {reads} "
+                             "counted loss reads")
+    if any(launches.values()):
+        raise AssertionError(f"{what}: training launched kernels {launches}")
+    return out, launches, step_ms, clock.metrics, peak
+
+
+def _train_main_path(dev, kernel_mods):
+    """Phase 26: the training main path, then ``grad_accum`` and the
+    checkpointed run.  The killed-and-resumed run trains the smoke config
+    (d_model 64, 2 layers, 4 x 64 tokens): the full size's state is 4.64
+    GB a checkpoint, which the check would write five times.  Returns
+    every kernel's launches in the main path's run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import TrainStepBuilder
+
+    out, launches, step_ms, _, peak = _train_run(
+        dev, kernel_mods, TRAIN_ARCH, f"{TRAIN_ARCH} train", steps=TRAIN_STEPS,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=10)
+    med = float(np.median(step_ms[-10:]))
+    toks = TRAIN_BATCH * TRAIN_SEQ
+    _line("train", f"{TRAIN_ARCH} full width and depth, bfloat16, "
+          f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: loss "
+          f"{out['first_loss']!r} (first log) -> {out['final_loss']!r} "
+          f"(last); step wall {med:.3f} ms (median of the last 10, CUDA "
+          f"events between step ends), {toks / med * 1e3:.1f} training "
+          f"tokens/s; steps {[round(x, 3) for x in step_ms]}; peak memory "
+          f"{peak / 2**30:.3f} GiB")
+    if not out["final_loss"] < out["first_loss"]:
+        raise AssertionError(f"{TRAIN_ARCH} train: the loss did not fall")
+
+    # One step under the profiler, on a builder of the same model.
+    cfg = get_config(TRAIN_ARCH)
+    builder = TrainStepBuilder(build_model(cfg, device=dev, seed=0),
+                               AdamWConfig(lr=3e-3), warmup_steps=3,
+                               total_steps=TRAIN_STEPS)
+    state = builder.fresh_state()
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH).global_batch_at(0).items()}
+    box = [state]
+
+    def one_step():
+        box[0], _ = builder.train_step(box[0], batch)
+
+    one_step()
+    wall, seen, dev_us = _device_profile(one_step)
+    busy_ms = sum(dev_us(e) for e in seen) / 1e3
+    _line("profile", f"one {TRAIN_ARCH} train step under the profiler: wall "
+          f"{wall * 1e3:.3f} ms, {sum(e.count for e in seen)} kernels, device "
+          f"busy {busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.1f}% of the "
+          "profiled wall)")
+    for e in sorted(seen, key=dev_us, reverse=True)[:10]:
+        _line("profile", f"{dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:100]}")
+    del builder, state, box
+    torch.cuda.empty_cache()
+
+    # grad_accum=2 against 1 on one batch, depth 2, float32.
+    cfg = get_config(TRAIN_ARCH, dtype="float32", param_dtype="float32",
+                     n_layers=2)
+    base = build_model(cfg, device=dev, seed=1)
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                        seed=2).global_batch_at(0)
+    res = {}
+    for accum in (1, 2):
+        # A first AdamW step moves an element by lr g / (|g| + eps), which
+        # for gradients near their float error differs with the order of
+        # the sums: at lr 1e-4 mlp.wo differed by 1.12e-4 of its largest
+        # |value|.  So the accumulated gradient is compared as the first
+        # moment (0.1 g), and the parameters at lr 1e-5.
+        builder = TrainStepBuilder(copy.deepcopy(base), AdamWConfig(lr=1e-5),
+                                   grad_accum=accum, warmup_steps=0,
+                                   total_steps=10)
+        state, m = builder.train_step(builder.fresh_state(), batch)
+        res[accum] = (float(m["loss"]), float(m["lr"]), state["params"],
+                      state["opt"]["mu"])
+    (l1, lr1, p1, mu1), (l2, _, p2, mu2) = res[1], res[2]
+    if not abs(l2 - l1) <= 1e-4 * abs(l1):
+        raise AssertionError("grad_accum=2: loss differs from grad_accum=1")
+    mu_gap = _moment_gap(mu2, mu1, "grad_accum=2 first moment")
+    gap = _param_gap(p2, p1, lr1, "grad_accum=2")
+    _line("train", f"grad_accum=2 against 1 on one {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} batch, depth 2, float32, lr {lr1:.1e}: loss {l2!r} "
+          f"vs {l1!r}; first moments (0.1 x the gradient) within "
+          f"{mu_gap:.3e} and parameters within {gap:.3e} of each tensor's "
+          "largest |value| (limit 1e-4; the QKV biases within lr)")
+    del base, res, builder, state
+    torch.cuda.empty_cache()
+
+    # Killed after the step-4 checkpoint, resumed to 8: 8 steps bit for bit.
+    class _Killed(Exception):
+        pass
+
+    run = dict(smoke=True, steps=8, batch=4, seq=64, ckpt_every=4,
+               log_every=4, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        full, split = os.path.join(tmp, "full"), os.path.join(tmp, "split")
+        train_mod.train(TRAIN_ARCH, ckpt_dir=full, **run)
+        save = CheckpointManager.save
+
+        def dying(self, step, tree, meta=None):
+            save(self, step, tree, meta)
+            raise _Killed(step)
+
+        CheckpointManager.save = dying
+        try:
+            train_mod.train(TRAIN_ARCH, ckpt_dir=split, **run)
+            raise AssertionError("the killed run was not killed")
+        except _Killed:
+            pass
+        finally:
+            CheckpointManager.save = save
+        killed_at = CheckpointManager(split).latest_step()
+        train_mod.train(TRAIN_ARCH, ckpt_dir=split, **run)
+        trees = [CheckpointManager(d).restore_latest()[1] for d in (full, split)]
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", np.asarray(v)
+
+    a, b = dict(leaves(trees[0])), dict(leaves(trees[1]))
+    same = a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+        for k in a)
+    _line("train", f"{TRAIN_ARCH} smoke, bfloat16: killed after the step-"
+          f"{killed_at} checkpoint and resumed to step 8: {len(a)} leaves "
+          f"equal to 8 uninterrupted steps bit for bit: {same}")
+    if killed_at != 4 or not same:
+        raise AssertionError("the resumed training run differs from the "
+                             "uninterrupted one")
+    return launches
+
+
+def _moe_train(dev, kernel_mods):
+    """Phase 28's training half: qwen2-moe-a2.7b at full width and depth
+    ``MOE_TRAIN_DEPTH``.  Returns every kernel's launches in the run."""
+    import numpy as np
+    import torch
+
+    out, launches, step_ms, metrics, peak = _train_run(
+        dev, kernel_mods, MOE_ARCH, f"{MOE_ARCH} train",
+        steps=MOE_TRAIN_STEPS, batch=MOE_TRAIN_BATCH, seq=TRAIN_SEQ,
+        log_every=5, overrides={"n_layers": MOE_TRAIN_DEPTH})
+    aux = [float(m["aux"]) for m in metrics]
+    med = float(np.median(step_ms[-5:]))
+    toks = MOE_TRAIN_BATCH * TRAIN_SEQ
+    _line("train", f"{MOE_ARCH} full width, depth {MOE_TRAIN_DEPTH}, "
+          f"bfloat16, {MOE_TRAIN_STEPS} steps of {MOE_TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: loss {out['first_loss']!r} (first log) -> "
+          f"{out['final_loss']!r} (last); aux {[round(a, 4) for a in aux]}; "
+          f"step wall {med:.3f} ms (median of the last 5), "
+          f"{toks / med * 1e3:.1f} training tokens/s; steps "
+          f"{[round(x, 3) for x in step_ms]}; peak memory "
+          f"{peak / 2**30:.3f} GiB")
+    if not out["final_loss"] < out["first_loss"]:
+        raise AssertionError(f"{MOE_ARCH} train: the loss did not fall")
+    if not all(math.isfinite(a) for a in aux):
+        raise AssertionError(f"{MOE_ARCH} train: aux not finite: {aux}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3099,12 +3530,30 @@ def main() -> int:
     host_s = time.perf_counter() - t_host
     host_phase_s = (t_23 - t_host, t_24 - t_23, t_host + host_s - t_24)
 
+    # 25-28. The training path and the moe family.
+    t_train = time.perf_counter()
+    _train_reference(dev)
+    t_26 = time.perf_counter()
+    train_launches = _train_main_path(dev, kernel_mods)
+    t_27 = time.perf_counter()
+    _serving_reference(dev, MOE_ARCH)
+    t_28 = time.perf_counter()
+    moe_serve_launches = _serving_main_path(dev, kernel_mods, MOE_ARCH,
+                                            "bfloat16")
+    moe_train_launches = _moe_train(dev, kernel_mods)
+    train_s = time.perf_counter() - t_train
+    train_phase_s = (t_26 - t_train, t_27 - t_26, t_28 - t_27,
+                     t_train + train_s - t_28)
+    train_launches = {n: train_launches[n] + moe_train_launches[n]
+                      for n in kernel_mods}
+
     new_paths = {"race_rings": ring_launches, "open_rings": open_ring_launches,
                  "grid_rings": grid_ring_launches,
                  "checkpointed": ckpt_launches,
                  "workload_race": workload_launches,
                  "host_race": host_race_launches,
-                 "host_open": host_open_launches}
+                 "host_open": host_open_launches,
+                 "train": train_launches, "moe_serve": moe_serve_launches}
     kernels[0]["path_launches"] = {
         "race": launches["pair_score"], "open": open_launches["pair_score"],
         "grid": grid_launches["pair_score"],
@@ -3123,15 +3572,20 @@ def main() -> int:
                                   **{k: v[entry["name"]]
                                      for k, v in new_paths.items()}}
     total_s = time.perf_counter() - t_start
-    before_s = total_s - rings_s - host_s
+    before_s = total_s - rings_s - host_s - train_s
     _line("done", f"{total_s:.1f} s in all; phases 19-21 {rings_s:.1f} s, "
           f"{100 * rings_s / before_s:.1f}% added to phases "
           f"1-18's {before_s:.1f} s (19: {phase_s[0]:.1f} s, 20: "
           f"{phase_s[1]:.1f} s, 21: {phase_s[2]:.1f} s); phases 22-24 "
-          f"{host_s:.1f} s, {100 * host_s / (total_s - host_s):.1f}% added "
-          f"to phases 1-21's {total_s - host_s:.1f} s (22: "
+          f"{host_s:.1f} s, {100 * host_s / (total_s - host_s - train_s):.1f}"
+          "% added "
+          f"to phases 1-21's {total_s - host_s - train_s:.1f} s (22: "
           f"{host_phase_s[0]:.1f} s, 23: {host_phase_s[1]:.1f} s, 24: "
-          f"{host_phase_s[2]:.1f} s)")
+          f"{host_phase_s[2]:.1f} s); phases 25-28 {train_s:.1f} s, "
+          f"{100 * train_s / (total_s - train_s):.1f}% added to phases "
+          f"1-24's {total_s - train_s:.1f} s (25: {train_phase_s[0]:.1f} s, "
+          f"26: {train_phase_s[1]:.1f} s, 27: {train_phase_s[2]:.1f} s, 28: "
+          f"{train_phase_s[3]:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

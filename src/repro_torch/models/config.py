@@ -16,6 +16,7 @@ import dataclasses
 import torch
 
 ATTENTION_IMPLS = ("plain", "kernel")
+REMATS = ("none", "dots", "full")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +57,7 @@ class ModelConfig:
     # numerics / execution
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
-    remat: str = "none"
+    remat: str = "none"          # none | dots | full
     attention_impl: str = "plain"  # plain | kernel
     moe_dispatch: str = "scatter"
     scan_layers: bool = True
@@ -65,10 +66,16 @@ class ModelConfig:
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl {self.attention_impl!r} not in "
                              f"{ATTENTION_IMPLS}")
+        if self.remat not in REMATS:
+            raise ValueError(f"remat {self.remat!r} not in {REMATS}")
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def resolved_moe_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
 
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)

@@ -34,7 +34,8 @@ def truncated_normal_(t: torch.Tensor, stddev: float,
 
 
 def param(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised parameter; the serving stack computes no gradients."""
+    """An uninitialised parameter, without gradients: serving computes none,
+    and the trainer turns them on for the parameters it trains."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

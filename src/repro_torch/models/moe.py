@@ -1,0 +1,185 @@
+"""Mixture-of-Experts layer: top-k routing, capacity-based dispatch and
+optional shared experts, the twin of ``repro.models.moe``.
+
+Two dispatch strategies:
+
+* ``scatter`` (default): tokens are placed into an (E, C, d) buffer with a
+  scatter-add at their per-expert positions (the cumsum trick) and
+  gathered back after the expert products.  No products beyond the
+  useful expert compute.
+* ``einsum``: one-hot dispatch and combine products over a (k*T, E, C)
+  tensor, the naive baseline (about 5.4 GB in float32 at a 4 x 2048
+  prefill of qwen2-moe-a2.7b: keep it to small inputs).
+
+``shard_map`` is the reference's expert-parallel dispatch; on one device
+it is the reference's own mesh-less branch, which is ``scatter``.  The
+multi-device form waits for a ``torch.distributed`` consumer (ROADMAP.md,
+section 1).
+
+The routing copies the reference's order exactly, because it decides
+which (token, slot) pairs the capacity drops: the top k by a stable
+descending sort (the lower expert first on ties, as ``jax.lax.top_k``),
+slots flattened slot-major (``topi.T``), the load-balance loss's argmax
+taking the first maximum.  Products accumulate in float32 and round once
+(:func:`repro_torch.models.layers.dot`).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dot, param, truncated_normal_
+
+F32 = torch.float32
+DISPATCHES = ("scatter", "einsum", "shard_map")
+
+
+class MoE(nn.Module):
+    """The reference's tree: ``router`` (d, E) float32, ``experts_wi`` and
+    ``experts_wi_gate`` (E, d, d_ff), ``experts_wo`` (E, d_ff, d), and with
+    shared experts ``shared_wi``, ``shared_wi_gate`` (d, S) and
+    ``shared_wo`` (S, d), S = d_ff x n_shared_experts."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, dff, e = cfg.d_model, cfg.resolved_moe_d_ff, cfg.n_experts
+        wd = cfg.weight_dtype()
+        self.router = param((d, e), F32, device)
+        self.experts_wi = param((e, d, dff), wd, device)
+        self.experts_wi_gate = param((e, d, dff), wd, device)
+        self.experts_wo = param((e, dff, d), wd, device)
+        if cfg.n_shared_experts > 0:
+            sh = dff * cfg.n_shared_experts
+            self.shared_wi = param((d, sh), wd, device)
+            self.shared_wi_gate = param((d, sh), wd, device)
+            self.shared_wo = param((sh, d), wd, device)
+        else:
+            self.shared_wi = self.shared_wi_gate = self.shared_wo = None
+
+    def reset_parameters(self, generator) -> None:
+        d, dff = self.experts_wi.shape[1:]
+        truncated_normal_(self.router, d ** -0.5, generator)
+        truncated_normal_(self.experts_wi, d ** -0.5, generator)
+        truncated_normal_(self.experts_wi_gate, d ** -0.5, generator)
+        truncated_normal_(self.experts_wo, dff ** -0.5, generator)
+        if self.shared_wi is not None:
+            truncated_normal_(self.shared_wi, d ** -0.5, generator)
+            truncated_normal_(self.shared_wi_gate, d ** -0.5, generator)
+            truncated_normal_(self.shared_wo, self.shared_wo.shape[0] ** -0.5,
+                              generator)
+
+
+def _router(params: MoE, x, cfg: ModelConfig):
+    """x: (T, d) -> top-k (weights (T, k) float32, ids (T, k), probs (T, E))."""
+    probs = torch.softmax(dot(x, params.router), dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.n_experts_per_token
+    topw, topi = vals[:, :k], ids[:, :k]
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    return topw, topi, probs
+
+
+def _capacity(t: int, cfg: ModelConfig) -> int:
+    """Slots per expert for a call of ``t`` tokens (decode steps and
+    microbatches get their own)."""
+    c = int(t * cfg.n_experts_per_token * cfg.capacity_factor / cfg.n_experts)
+    return max(c, 4)
+
+
+def _one_hot(ids, n: int):
+    """(N,) integer -> (N, n) bool, without ``F.one_hot``'s range check
+    (a host sync on a GPU)."""
+    return ids[:, None] == torch.arange(n, device=ids.device)
+
+
+def _slots(topi, cfg: ModelConfig, c: int):
+    """Each (token, slot) pair's expert and position in that expert's
+    buffer, flattened slot-major (all first choices, then all second
+    ones, ...): (flat_ids, pos, keep) of shape (k*T,); ``keep`` is False
+    where the pair falls past the capacity ``c`` and is dropped."""
+    flat_ids = topi.T.reshape(-1)
+    # The one-hot laid out (E, k*T), so that the cumsum runs along the
+    # inner dimension (a GPU scans an outer one with a thread a column).
+    experts = torch.arange(cfg.n_experts, device=flat_ids.device)
+    onehot = (flat_ids[None, :] == experts[:, None]).to(torch.int32)
+    pos_in_e = torch.cumsum(onehot, dim=1) - 1
+    pos = pos_in_e.gather(0, flat_ids[None, :])[0]
+    return flat_ids, pos, pos < c
+
+
+def _expert_ffn(params: MoE, xs, cfg: ModelConfig):
+    """xs: (E, C, d) -> (E, C, d), every expert's SwiGLU as batched
+    products."""
+    xf = xs.float()
+    h = torch.bmm(xf, params.experts_wi.float())
+    g = torch.bmm(xf, params.experts_wi_gate.float())
+    h = (F.silu(g) * h).to(xs.dtype)
+    return torch.bmm(h.float(), params.experts_wo.float()).to(xs.dtype)
+
+
+def _dispatch_scatter(params: MoE, x, cfg: ModelConfig):
+    """Scatter/gather dispatch: no products beyond the experts'."""
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.n_experts_per_token
+    c = _capacity(t, cfg)
+    topw, topi, probs = _router(params, x, cfg)
+    flat_ids, pos, keep = _slots(topi, cfg, c)
+    slot_w = topw.T.reshape(-1)
+    # A dropped pair adds 0 at its expert's last slot, so every slot's sum
+    # is exact in any order of the adds.
+    safe_pos = torch.where(keep, pos, c - 1)
+    contrib = torch.where(keep[:, None], x.repeat(k, 1), 0)
+    buf = x.new_zeros((e, c, d)).index_put((flat_ids, safe_pos), contrib,
+                                           accumulate=True)
+    out_buf = _expert_ffn(params, buf, cfg)
+    gathered = torch.where(keep[:, None], out_buf[flat_ids, safe_pos], 0)
+    y = (gathered.float() * slot_w[:, None]).reshape(k, t, d).sum(0)
+    return y.to(x.dtype), probs
+
+
+def _dispatch_einsum(params: MoE, x, cfg: ModelConfig):
+    """One-hot einsum dispatch (the baseline with extra products)."""
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.n_experts_per_token
+    c = _capacity(t, cfg)
+    topw, topi, probs = _router(params, x, cfg)
+    flat_ids, pos, keep = _slots(topi, cfg, c)
+    slot_w = topw.T.reshape(-1)
+    disp = (_one_hot(flat_ids, e).to(F32)[:, :, None]
+            * _one_hot(torch.where(keep, pos, c - 1), c).to(F32)[:, None, :])
+    disp = disp * keep[:, None, None]
+    src = x.repeat(k, 1).float()
+    buf = torch.einsum("sec,sd->ecd", disp, src).to(x.dtype)
+    out_buf = _expert_ffn(params, buf, cfg).float()
+    comb = torch.einsum("sec,ecd->sd", disp, out_buf) * slot_w[:, None]
+    y = comb.reshape(k, t, d).sum(0)
+    return y.to(x.dtype), probs
+
+
+def moe_layer(params: MoE, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
+                                                          torch.Tensor]:
+    """x: (B, S, d) -> (y, aux_loss).  Routed experts + optional shared."""
+    if cfg.moe_dispatch not in DISPATCHES:
+        raise ValueError(f"moe_dispatch {cfg.moe_dispatch!r} not in "
+                         f"{DISPATCHES}")
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    if cfg.moe_dispatch == "einsum":
+        y, probs = _dispatch_einsum(params, xt, cfg)
+    else:
+        y, probs = _dispatch_scatter(params, xt, cfg)
+    if params.shared_wi is not None:
+        h = dot(xt, params.shared_wi)
+        g = dot(xt, params.shared_wi_gate)
+        hs = (F.silu(g) * h).to(x.dtype)
+        y = y + dot(hs, params.shared_wo).to(x.dtype)
+    # Load-balancing auxiliary loss (Switch-style): E * sum_e f_e * p_e.
+    me = probs.mean(dim=0)
+    density = _one_hot(torch.argmax(probs, dim=-1), cfg.n_experts).to(F32)
+    aux = cfg.n_experts * torch.sum(me * density.mean(dim=0))
+    return y.reshape(b, s, d), aux

@@ -1,4 +1,4 @@
-"""Model assembly: the dense family.
+"""Model assembly: the dense and moe families.
 
 One :class:`Model` (an ``nn.Module``) per architecture, built from a
 :class:`ModelConfig`:
@@ -10,25 +10,61 @@ One :class:`Model` (an ``nn.Module``) per architecture, built from a
 * ``init_cache(batch, max_len)``   -> decode cache;
 * ``decode_step(cache, tokens)``   -> (logits, cache), one new token.
 
-Dense blocks are pre-norm: ``x += attn(n(x)); x += mlp(n(x))``.  The
-reference's other families (moe, vlm, audio, hybrid, ssm) and decoding
-with a sliding window through a ring-buffer cache are not ported yet
-(ROADMAP.md, section 1, queue (c)); they raise ``NotImplementedError``.
+Blocks are pre-norm: ``x += attn(n(x)); x += ffn(n(x))``, the feed-forward
+an MLP (dense) or routed experts plus shared ones (moe, whose blocks also
+return the load-balance loss).  ``cfg.remat`` recomputes each block in
+the backward pass: ``"full"`` keeps nothing, ``"dots"`` keeps the
+products' outputs, ``"none"`` keeps everything; all three give the same
+numbers.  The reference's other families (vlm, audio, hybrid, ssm) and
+decoding with a sliding window through a ring-buffer cache are not
+ported yet (ROADMAP.md, section 1, queue (c)); they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 
 F32 = torch.float32
 _NOT_PORTED = "is not ported yet (ROADMAP.md, section 1, queue (c))"
+FAMILIES = ("dense", "moe")
+
+#: The operators whose outputs ``remat="dots"`` keeps: the products.
+_PRODUCTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str, *args):
+    """``fn(*args)``, recomputed in the backward pass as ``mode`` says."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if mode == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.
+                      partial(create_selective_checkpoint_contexts,
+                              _dots_policy))
+
+
+def reference_ndim(name: str, p: torch.Tensor) -> int:
+    """The rank parameter ``name`` has in the reference's tree, where every
+    block parameter is stacked on a leading layer axis."""
+    return p.dim() + int(name.startswith("blocks."))
 
 
 class Block(nn.Module):
@@ -38,27 +74,37 @@ class Block(nn.Module):
         self.ln1 = layers.Norm(cfg.d_model, device)
         self.ln2 = layers.Norm(cfg.d_model, device)
         self.attn = attn_mod.Attention(cfg, device=device)
-        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_activation,
-                              cfg.weight_dtype(), device)
+        if cfg.family == "moe":
+            self.moe = moe_mod.MoE(cfg, device)
+            self.mlp = None
+        else:
+            self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_activation,
+                                  cfg.weight_dtype(), device)
+            self.moe = None
 
     def reset_parameters(self, generator) -> None:
-        for m in (self.ln1, self.ln2, self.attn, self.mlp):
+        for m in (self.ln1, self.ln2, self.attn, self.moe or self.mlp):
             m.reset_parameters(generator)
+
+    def ffn(self, h):
+        """The feed-forward half on the normalised stream: (y, aux)."""
+        if self.moe is not None:
+            return moe_mod.moe_layer(self.moe, h, self.cfg)
+        return self.mlp(h), torch.zeros((), dtype=F32, device=h.device)
 
     def forward(self, x, positions=None):
         """(B, S, d) -> ((B, S, d), aux) over the full sequence."""
         cfg = self.cfg
         a = layers.apply_norm(cfg.norm, self.ln1, x)
         x = x + attn_mod.attention(self.attn, a, cfg, positions=positions)
-        h = layers.apply_norm(cfg.norm, self.ln2, x)
-        x = x + self.mlp(h)
-        return x, torch.zeros((), dtype=F32, device=x.device)
+        y, aux = self.ffn(layers.apply_norm(cfg.norm, self.ln2, x))
+        return x + y, aux
 
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(f"model family {cfg.family!r} {_NOT_PORTED}")
         self.cfg = cfg
         wdt = cfg.weight_dtype()
@@ -105,7 +151,7 @@ class Model(nn.Module):
         x = self._embed(batch["tokens"])
         aux = torch.zeros((), dtype=F32, device=x.device)
         for blk in self.blocks:
-            x, a = blk(x)
+            x, a = _remat(blk, self.cfg.remat, x)
             aux = aux + a
         return self._logits(x), aux
 
@@ -146,8 +192,8 @@ class Model(nn.Module):
             att = self._decode_attn(blk.attn, a, cache["k"][i], cache["v"][i],
                                     pos)
             x = x + att
-            m = layers.apply_norm(cfg.norm, blk.ln2, x)
-            x = x + blk.mlp(m)
+            y, _aux = blk.ffn(layers.apply_norm(cfg.norm, blk.ln2, x))
+            x = x + y
         cache = dict(cache, pos=pos + 1)
         return self._logits(x), cache
 
