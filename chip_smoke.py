@@ -34,8 +34,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 8. the serving kernels (``flash_attention``, ``decode_attention``,
    ``rmsnorm``) against their plain versions on the card, at the reference
    tests' shapes and the serving path's (1e-4 abs/rel in float32, 2e-2 in
-   bfloat16), and flash attention at the edges of its tensor-core design
-   (``FLASH_EDGES``, both types; rows that see no key exactly 0);
+   bfloat16), flash attention at the shapes the vlm and audio main paths
+   give it (``FLASH_PATH_SHAPES``, both types) and at the edges of its
+   tensor-core design (``FLASH_EDGES``, both types; rows that see no key
+   exactly 0);
 9. the serving path's reference check, card against CPU: qwen1.5-0.5b at
    full width and depth 2, the same seeded weights on both: prefill logits
    of 1 x 256 tokens and the logits after 16 decode steps (1e-4 of the
@@ -53,7 +55,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    float32 SIMT bound of the earlier design is printed beside it, the
    SDPA backend that ran the yardstick is named by its kernels, the
    pre-pass and the attention kernel are timed apart under the profiler,
-   and the bfloat16 kernel is timed at the same shape;
+   and the bfloat16 kernel is timed at the same shape; then flash
+   attention at ``FLASH_PATH_SHAPES`` in both types beside its plain
+   version, its bound and SDPA with the same ``is_causal``;
 12. the open system's reference check, card against CPU: ``ClusterSim``
    with ``engine="scan"`` at capacity 16 (15 jobs at quantum 0, then 3 at
    every odd quantum), policies ``adjacent``, ``synpa4`` with fifo and
@@ -188,7 +192,27 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    ``serve_demo`` at its defaults), and ``train`` of qwen2-moe-a2.7b at
    full width and depth 2 in bfloat16 (10 steps, batch 4, sequence 512),
    counted and timed as in phase 26: the loss falls and ``aux`` stays
-   finite.
+   finite;
+29. the vlm and audio families' reference check, card against CPU,
+   float32, ``attention_impl="kernel"``, every cross block's ``gate`` at
+   0.5 on both sides (it starts at 0, where the cross-attention adds
+   nothing): phase 9 for llama-3.2-vision-11b at full width and depth 5
+   (one group: four self blocks, one cross block) and for
+   whisper-large-v3 at full width with 2 decoder and 2 encoder layers
+   over 1500 frames, each prefill with its batch's image or frame
+   embeddings, the decode cache holding the image embeddings or the
+   encoder's output of the frames; then phase 25's three training steps
+   for each family's smoke config, embeddings in the batches;
+30. the vlm main path: phase 10 for llama-3.2-vision-11b at full width
+   and depth (40 layers, bfloat16): a prefill of 4 x 2048 tokens with 4 x
+   1601 image embeddings launches ``flash_attention`` exactly 32 times
+   (the self blocks; the cross blocks attend in plain tensor code, as the
+   reference's), then ``serve_demo`` at its defaults in float32;
+31. the audio main path: phase 10 for whisper-large-v3 at full width and
+   depth (32 encoder and 32 decoder layers, bfloat16): a prefill of 4 x
+   448 tokens (whisper's text context) over 4 x 1500 frames launches
+   ``flash_attention`` exactly 64 times, 32 of them non-causal (the
+   encoder's), then ``serve_demo`` at its defaults.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -264,6 +288,20 @@ RING_PROFILE_QUANTA = 6
 TRAIN_ARCH, MOE_ARCH = "qwen1.5-0.5b", "qwen2-moe-a2.7b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 512
 MOE_TRAIN_DEPTH, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH = 2, 10, 4
+#: The vlm and audio families (phases 29-31): the configurations, the
+#: vlm reference check's depth (one group of four self blocks and a cross
+#: block), the audio one's decoder and encoder depth, and whisper's text
+#: context, the audio prefill's length.
+VLM_ARCH, AUDIO_ARCH = "llama-3.2-vision-11b", "whisper-large-v3"
+VLM_REF_DEPTH, AUDIO_REF_DEPTH, AUDIO_S = 5, 2, 448
+#: The gate every cross block gets in the reference checks.
+GATE = 0.5
+#: Flash attention at the vlm and audio main paths' shapes: ((B, Sq, Skv,
+#: Hq, Hkv, D), causal): llama-3.2-vision-11b's self blocks, the whisper
+#: encoder's bidirectional attention over 1500 frames.
+#: tests/test_torch_vlm_audio_gpu.py holds the kernel to the same two.
+FLASH_PATH_SHAPES = [((PREFILL_B, PREFILL_S, PREFILL_S, 32, 8, 128), True),
+                     ((PREFILL_B, 1500, 1500, 20, 20, 64), False)]
 #: Flash attention's edge cases: (B, Sq, Skv, Hq, Hkv, D, causal, window,
 #: q scale).  Lengths that are multiples of no tile, Sq != Skv both ways,
 #: GQA groups 1, 4 and 8, windows whose first key falls mid-tile, q scaled
@@ -730,6 +768,9 @@ def _serving_kernels_check(dev, rng):
                   torch.float32, 1.0))
     cases.append(((PREFILL_B, PREFILL_S, PREFILL_S, 16, 16, 128), True, 0,
                   torch.bfloat16, 1.0))
+    for shape, causal in FLASH_PATH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append((shape, causal, 0, dtype, 1.0))
     # The tensor-core design's edges, in both types (as
     # tests/test_torch_attention_gpu.py::FLASH_EDGES): lengths that are
     # multiples of no tile, Sq != Skv, GQA groups 1, 4 and 8, windows
@@ -806,35 +847,88 @@ def _serving_kernels_check(dev, rng):
     return errs
 
 
-def _serving_reference(dev, arch: str = SERVE_ARCH) -> None:
-    """Phases 9 and 27: ``arch``'s serving path at full width and depth 2,
-    card against CPU, the same seeded weights on both."""
+def _batch_extras(cfg, rng, b: int):
+    """A batch's embeddings for ``cfg``'s family, drawn from ``rng`` as
+    host arrays: image patch embeddings (vlm), audio frames (audio),
+    nothing for the others."""
+    import numpy as np
+
+    key, t = {"vlm": ("image_embeds", cfg.n_image_tokens),
+              "audio": ("audio_frames", cfg.encoder_seq)}.get(cfg.family,
+                                                             (None, 0))
+    if key is None:
+        return {}
+    return {key: rng.normal(size=(b, t, cfg.d_model)).astype(np.float32)}
+
+
+def _cache_extras(model, extras):
+    """What ``model``'s decode cache attends for a batch's embeddings, on
+    its device: the image embeddings, or the encoder's output of the
+    frames."""
+    import torch
+
+    with torch.no_grad():
+        if "audio_frames" in extras:
+            return {"enc": model._encoder(extras["audio_frames"])}
+        return {k: torch.as_tensor(v, device=model.device).to(
+            model.cfg.activation_dtype()) for k, v in extras.items()}
+
+
+def _open_gates(model, gate: float = GATE) -> None:
+    """Every cross block's gate to ``gate``: at its initial 0 the
+    cross-attention adds nothing to the stream."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".gate"):
+                p.fill_(gate)
+
+
+def _serving_reference(dev, arch: str = SERVE_ARCH, twins=None) -> None:
+    """Phases 9, 27 and 29: ``arch``'s serving path, card against CPU, the
+    same weights on both: ``twins`` (on the CPU, on the card), by default
+    ``arch`` at full width and depth 2 drawn on the CPU.  A vlm or audio
+    prefill takes its batch's embeddings, and its decode cache holds them
+    or the encoder's output."""
     import numpy as np
     import torch
 
     from repro_torch.models.registry import build_model, get_config
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = get_config(arch, dtype="float32", param_dtype="float32",
-                     n_layers=2, attention_impl="kernel")
-    on_cpu = build_model(cfg, device="cpu", seed=0)
-    on_card = copy.deepcopy(on_cpu).to(dev)
+    if twins is None:
+        cfg = get_config(arch, dtype="float32", param_dtype="float32",
+                         n_layers=2, attention_impl="kernel")
+        on_cpu = build_model(cfg, device="cpu", seed=0)
+        on_card = copy.deepcopy(on_cpu).to(dev)
+    else:
+        on_cpu, on_card = twins
+        cfg = on_cpu.cfg
+    what = f"{arch} depth {cfg.n_layers}" + (
+        f" + encoder {cfg.encoder_layers}" if cfg.family == "audio" else "")
     rng = np.random.default_rng(9)
     toks = rng.integers(0, cfg.vocab_size, (1, 256)).astype(np.int32)
-    want = ServeEngine(on_cpu, 64, 2).prefill({"tokens": toks})
-    got = ServeEngine(on_card, 64, 2).prefill({"tokens": toks}).cpu()
+    extras = _batch_extras(cfg, rng, 1)
+    batch = {"tokens": toks, **extras}
+    want = ServeEngine(on_cpu, 64, 2).prefill(batch)
+    got = ServeEngine(on_card, 64, 2).prefill(batch).cpu()
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     top2 = torch.topk(want[0], 2, dim=-1).values
     gap = float((top2[:, 0] - top2[:, 1]).min())
-    _line("reference", f"{arch} depth 2, prefill 1 x 256: max |logit| "
+    shapes = {k: tuple(v.shape) for k, v in extras.items()}
+    _line("reference", f"{what}, prefill 1 x 256 {shapes}: max |logit| "
           f"{scale:.4f}, max abs diff card vs CPU {err:.3e} (limit 1e-4 x "
           f"{scale:.4f}); least top-2 gap {gap:.4f}")
     if not (got.shape == want.shape and err <= 1e-4 * scale):
         raise AssertionError("serving prefill: card and CPU logits differ")
-    # The decode path: 16 tokens through decode steps into the KV cache.
-    want, _ = ServeEngine(on_cpu, 64, 1).prefill_into_cache(toks[:, :16])
-    got, _ = ServeEngine(on_card, 64, 1).prefill_into_cache(toks[:, :16])
+    # The decode path: 16 tokens through decode steps into the KV cache,
+    # the cache holding each side's own image embeddings or encoder output.
+    want, _ = ServeEngine(on_cpu, 64, 1).prefill_into_cache(
+        toks[:, :16], extras=_cache_extras(on_cpu, extras))
+    got, _ = ServeEngine(on_card, 64, 1).prefill_into_cache(
+        toks[:, :16], extras=_cache_extras(on_card, extras))
     scale = float(want.abs().max())
     err = float((got.cpu() - want).abs().max())
     _line("reference", f"16 decode steps: last logits max abs diff card vs "
@@ -843,8 +937,14 @@ def _serving_reference(dev, arch: str = SERVE_ARCH) -> None:
         raise AssertionError("serving decode: card and CPU logits differ")
     prompts = [rng.integers(0, cfg.vocab_size, size=rng.integers(4, 12))
                .astype(np.int32) for _ in range(3)]
-    out_cpu = ServeEngine(on_cpu, 64, 2).generate(prompts, max_new_tokens=8)
-    out_card = ServeEngine(on_card, 64, 2).generate(prompts, max_new_tokens=8)
+    # Both sides' slots attend the same embeddings (the CPU's encoder
+    # output, for audio), so the tokens test the decoder alone.
+    slots = _cache_extras(on_cpu, _batch_extras(cfg, rng, 2))
+    out_cpu = ServeEngine(on_cpu, 64, 2).generate(
+        prompts, max_new_tokens=8, extras=slots)
+    out_card = ServeEngine(on_card, 64, 2).generate(
+        prompts, max_new_tokens=8,
+        extras={k: v.to(dev) for k, v in slots.items()})
     same = all(np.array_equal(a, b) for a, b in zip(out_cpu, out_card))
     _line("reference", f"greedy generate, 3 requests, 2 slots, 8 new tokens: "
           f"card {[o.tolist() for o in out_card]}, identical to CPU: {same}")
@@ -853,12 +953,16 @@ def _serving_reference(dev, arch: str = SERVE_ARCH) -> None:
 
 
 def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
-                       dtype: str = "float32"):
-    """Phases 10 and 28: ``arch``'s serving main path at full width and
-    depth in ``dtype``: one prefill, timings and profiles, then
+                       dtype: str = "float32", seq: int = PREFILL_S,
+                       expect=None):
+    """Phases 10, 28, 30 and 31: ``arch``'s serving main path at full width
+    and depth in ``dtype``: one prefill of ``PREFILL_B`` x ``seq`` tokens
+    (with the batch's image or frame embeddings for vlm and audio), which
+    must launch ``flash_attention`` ``expect`` = (all, non-causal) times
+    (by default once a layer, causally), timings and profiles, then
     ``serve_demo`` (its own float32 model, built once the prefill's model
     is gone).  Returns every kernel's launches in the prefill and
-    ``serve_demo``."""
+    ``serve_demo``, and the prefill's non-causal flash launches."""
     import numpy as np
     import torch
 
@@ -871,41 +975,52 @@ def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
     model = build_model(cfg, device=dev, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
     engine = ServeEngine(model, max_len=64, batch_size=4)
-    toks = torch.as_tensor(np.random.default_rng(10).integers(
-        0, cfg.vocab_size, (PREFILL_B, PREFILL_S)).astype(np.int32),
-        device=dev)
-    batch = {"tokens": toks}
+    rng = np.random.default_rng(10)
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (PREFILL_B, seq)).astype(np.int32), device=dev)
+    extras = {k: torch.as_tensor(v, device=dev).to(cfg.activation_dtype())
+              for k, v in _batch_extras(cfg, rng, PREFILL_B).items()}
+    batch = {"tokens": toks, **extras}
+    expect = expect or (cfg.n_layers, 0)
+    fa = kernel_mods["flash_attention"]
 
     for mod in kernel_mods.values():
         mod.LAUNCHES = 0
+    fa.NONCAUSAL_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits = engine.prefill(batch)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     prefill_launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
-    if tuple(logits.shape) != (PREFILL_B, PREFILL_S, cfg.vocab_size):
+    noncausal = fa.NONCAUSAL_LAUNCHES
+    if tuple(logits.shape) != (PREFILL_B, seq, cfg.vocab_size):
         raise AssertionError(f"prefill logits {tuple(logits.shape)}")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("prefill logits not finite")
     del logits
-    _line("serve", f"{arch} full width ({cfg.n_layers} layers, "
-          f"{n_params} parameters, {dtype}): prefill {PREFILL_B} x "
-          f"{PREFILL_S} first call {first_s:.3f} s, launches {prefill_launches}")
-    if prefill_launches["flash_attention"] != cfg.n_layers:
+    shapes = {k: tuple(v.shape) for k, v in extras.items()}
+    _line("serve", f"{arch} full width ({cfg.n_layers} layers"
+          + (f" + {cfg.encoder_layers} encoder" if cfg.family == "audio"
+             else "")
+          + f", {n_params} parameters, {dtype}): prefill {PREFILL_B} x "
+          f"{seq} {shapes} first call {first_s:.3f} s, launches "
+          f"{prefill_launches}, {noncausal} of flash's non-causal")
+    if (prefill_launches["flash_attention"], noncausal) != tuple(expect):
         raise AssertionError(f"flash_attention launched "
-                             f"{prefill_launches['flash_attention']} times in "
-                             f"one prefill, expected {cfg.n_layers}")
+                             f"{prefill_launches['flash_attention']} times "
+                             f"({noncausal} non-causal) in one prefill, "
+                             f"expected {expect[0]} ({expect[1]})")
 
     # Wall times (host clock, synchronised; median of 3 after a warm call).
     prefill_ms = _wall_ms(lambda: engine.prefill(batch))
-    n_tok = PREFILL_B * PREFILL_S
-    cache = model.init_cache(4, 64)
+    n_tok = PREFILL_B * seq
+    cache = model.init_cache(4, 64, extras=_cache_extras(model, extras))
     cache["pos"].fill_(32)
     step_tok = torch.as_tensor(np.arange(4, dtype=np.int32)[:, None],
                                device=dev)
     step_ms = _wall_ms(lambda: engine.serve_step(cache, step_tok), reps=9)
-    _line("serve", f"prefill {PREFILL_B} x {PREFILL_S}: {prefill_ms:.3f} ms, "
+    _line("serve", f"prefill {PREFILL_B} x {seq}: {prefill_ms:.3f} ms, "
           f"{n_tok / prefill_ms * 1e3:.1f} tokens/s; decode step (4 slots, "
           f"position 32): {step_ms:.3f} ms, {4 / step_ms * 1e3:.1f} tokens/s")
     for label, fn in (("prefill", lambda: engine.prefill(batch)),
@@ -927,7 +1042,7 @@ def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
             _line("profile", f"{label}: flash's {name}: "
                   f"{sum(dev_us(e) for e in mine) / 1e3:.3f} ms in "
                   f"{sum(e.count for e in mine)} launches")
-    del model, engine, cache
+    del model, engine, cache, batch, extras
     torch.cuda.empty_cache()
 
     for mod in kernel_mods.values():
@@ -943,7 +1058,7 @@ def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
         raise AssertionError(f"serve_demo served {demo['requests']} requests, "
                              f"{demo['tokens']} tokens")
     torch.cuda.empty_cache()
-    return launches
+    return launches, noncausal
 
 
 def _serving_kernel_times(dev, rng, errs, path_launches):
@@ -1038,6 +1153,8 @@ def _serving_kernel_times(dev, rng, errs, path_launches):
           f"bfloat16: {bf16_ms * 1e3:.3f} us, SDPA {bf16_sdpa_ms * 1e3:.3f} "
           f"us; bound {4 * d * pairs / BF16_OPS_PER_S * 1e6:.3f} us by "
           f"operations (989 TFLOP/s)")
+    rows["flash_attention"]["path_shapes"] = _flash_path_times(
+        normal, fa_kernel, flash_attention_plain)
 
     # decode_attention: 8 slots, every position of a 4096-token cache valid.
     b, s, h, d = DECODE_B, DECODE_S, DECODE_H, DECODE_D
@@ -1096,7 +1213,8 @@ def _serving_kernel_times(dev, rng, errs, path_launches):
         extra = {}
         if name == "flash_attention":
             extra = {"bound_rate": rate,
-                     "library_backend": r["library_backend"]}
+                     "library_backend": r["library_backend"],
+                     "path_shapes": r["path_shapes"]}
         entries.append({
             "name": name,
             "route": "cuda",
@@ -1114,6 +1232,52 @@ def _serving_kernel_times(dev, rng, errs, path_launches):
             **extra,
         })
     return entries
+
+
+def _flash_path_times(normal, fa_kernel, flash_attention_plain):
+    """Phase 11's flash attention at ``FLASH_PATH_SHAPES`` in float32 and
+    bfloat16: the kernel, its plain version and SDPA (``is_causal`` as the
+    path has it, grouped heads through ``enable_gqa``) on the same inputs,
+    and the bound.  Returns one row a shape and type."""
+    import torch
+    import torch.nn.functional as F
+
+    out = []
+    for (b, sq, skv, hq, hkv, d), causal in FLASH_PATH_SHAPES:
+        pairs = _attention_pairs(sq, skv, causal, 0) * b * hq
+        q32, k32, v32 = (normal((b, sq, hq, d)), normal((b, skv, hkv, d)),
+                         normal((b, skv, hkv, d)))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            ms = _gpu_ms(lambda: fa_kernel.flash_attention_cuda(
+                q, k, v, causal), iters=10)
+            plain_ms = _gpu_ms(lambda: flash_attention_plain(q, k, v, causal),
+                               iters=2)
+            library_ms = _gpu_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=hq != hkv), iters=10)
+            n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+            n_ops = 4 * d * pairs
+            f32 = dtype == torch.float32
+            rate = (TF32_OPS_PER_S / TF32_PER_F32) if f32 else BF16_OPS_PER_S
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = n_ops / rate * 1e3
+            row = dict(
+                shape=(f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} D={d} "
+                       f"{'causal' if causal else 'non-causal'}"),
+                dtype=str(dtype)[6:], ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bound_rate=("float32 ops as 3 TF32 products at 495 TFLOP/s"
+                            if f32 else "bfloat16 at 989 TFLOP/s"))
+            out.append(row)
+            _line("kernel", f"flash_attention {row['shape']} {row['dtype']}: "
+                  f"{ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, SDPA "
+                  f"{library_ms * 1e3:.3f} us, bound "
+                  f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']} "
+                  f"({row['bound_rate']}; {n_bytes} B, {n_ops} ops; "
+                  f"{100 * row['bound_ms'] / ms:.1f}% of the bound)")
+    return out
 
 
 def mean_service_quanta(machine) -> float:
@@ -2956,9 +3120,14 @@ def _moment_gap(got, want, what: str) -> float:
                 lambda n: 1e-4 * top if n.endswith("attn.bk") else None)
 
 
-def _train_reference(dev) -> None:
-    """Phase 25: three training steps on the card against the same steps
-    on the CPU, float32, the same weights and batches."""
+def _train_reference(dev, runs=None) -> None:
+    """Phases 25 and 29: three training steps on the card against the same
+    steps on the CPU, float32, the same weights and batches.  ``runs``:
+    (arch, smoke config, depth or None, batch, sequence); by default
+    qwen1.5-0.5b at depth 2 and qwen2-moe-a2.7b at depth 1, full width.
+    A vlm or audio batch carries its embeddings, and every gate is at
+    ``GATE``."""
+    import numpy as np
     import torch
 
     from repro_torch.data.synthetic import SyntheticLM
@@ -2974,13 +3143,18 @@ def _train_reference(dev) -> None:
     # its largest |value| after 3 steps.  At lr 1e-4 a step is 0.2% of
     # the weights' scale and that spread stays 10x under the limit.
     lr = 1e-4
-    for arch, depth, batch, seq in ((TRAIN_ARCH, 2, 2, 128),
-                                    (MOE_ARCH, 1, 2, 64)):
-        cfg = get_config(arch, dtype="float32", param_dtype="float32",
-                         n_layers=depth)
+    runs = runs or ((TRAIN_ARCH, False, 2, 2, 128),
+                    (MOE_ARCH, False, 1, 2, 64))
+    for arch, smoke, depth, batch, seq in runs:
+        cfg = get_config(arch, smoke=smoke, dtype="float32",
+                         param_dtype="float32",
+                         **({"n_layers": depth} if depth else {}))
         on_cpu = build_model(cfg, device="cpu", seed=0)
+        _open_gates(on_cpu)
         on_card = copy.deepcopy(on_cpu).to(dev)
         data = SyntheticLM(cfg.vocab_size, seq, batch, seed=0)
+        batches = [{**data.global_batch_at(it), **_batch_extras(
+            cfg, np.random.default_rng(it), batch)} for it in range(3)]
         runs = {}
         slots = moe_mod._slots
         for side, model in (("cpu", on_cpu), ("card", on_card)):
@@ -2998,8 +3172,7 @@ def _train_reference(dev) -> None:
             try:
                 t0 = time.perf_counter()
                 for it in range(3):
-                    state, m = builder.train_step(state,
-                                                  data.global_batch_at(it))
+                    state, m = builder.train_step(state, batches[it])
                     metrics.append({k: float(v) for k, v in m.items()})
                 secs = time.perf_counter() - t0
             finally:
@@ -3019,7 +3192,9 @@ def _train_reference(dev) -> None:
         same = (len(got_k) == len(want_k)
                 and all(torch.equal(a, b) for a, b in zip(got_k, want_k)))
         dropped = [int((~k).sum()) for k in want_k]
-        _line("train-ref", f"{arch} full width depth {depth} float32, 3 "
+        size = (f"smoke config ({cfg.n_layers} layers, d_model "
+                f"{cfg.d_model})" if smoke else f"full width depth {depth}")
+        _line("train-ref", f"{arch} {size} float32, 3 "
               f"steps of {batch} x {seq}: losses card "
               f"{[m['loss'] for m in got]} CPU {[m['loss'] for m in want]}; "
               f"aux card {[m['aux'] for m in got]}; lr {[m['lr'] for m in got]}"
@@ -3244,6 +3419,38 @@ def _moe_train(dev, kernel_mods):
         raise AssertionError(f"{MOE_ARCH} train: aux not finite: {aux}")
     torch.cuda.empty_cache()
     return launches
+
+
+def _family_reference(dev) -> None:
+    """Phase 29: the vlm and audio families' serving path card against
+    CPU (llama-3.2-vision-11b at depth ``VLM_REF_DEPTH``, whisper-large-v3
+    at ``AUDIO_REF_DEPTH`` decoder and encoder layers, full width, every
+    gate at ``GATE``), then three training steps of each smoke config."""
+    import torch
+
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.models.transformer import Model
+
+    for arch, overrides in (
+            (VLM_ARCH, {"n_layers": VLM_REF_DEPTH}),
+            (AUDIO_ARCH, {"n_layers": AUDIO_REF_DEPTH,
+                          "encoder_layers": AUDIO_REF_DEPTH})):
+        cfg = get_config(arch, dtype="float32", param_dtype="float32",
+                         attention_impl="kernel", **overrides)
+        # Drawn on the card and copied to the CPU, whose draw of the vlm's
+        # 2.1 B weights would be slow.
+        on_card = build_model(cfg, device=dev, seed=0)
+        _open_gates(on_card)
+        on_cpu = Model(cfg, "cpu")
+        on_cpu.load_state_dict(on_card.state_dict())
+        n_params = sum(p.numel() for p in on_cpu.parameters())
+        _line("reference", f"{arch}: {n_params} parameters on each side, "
+              f"every gate {GATE}")
+        _serving_reference(dev, arch, twins=(on_cpu, on_card))
+        del on_card, on_cpu
+        torch.cuda.empty_cache()
+    _train_reference(dev, runs=((VLM_ARCH, True, None, 2, 64),
+                                (AUDIO_ARCH, True, None, 2, 64)))
 
 
 def main() -> int:
@@ -3495,7 +3702,7 @@ def main() -> int:
     # 8-11. The serving path.
     serve_errs = _serving_kernels_check(dev, rng)
     _serving_reference(dev)
-    path_launches = _serving_main_path(dev, kernel_mods)
+    path_launches, _ = _serving_main_path(dev, kernel_mods)
     kernels += _serving_kernel_times(dev, rng, serve_errs, path_launches)
 
     # 12-14. The open system.
@@ -3538,8 +3745,8 @@ def main() -> int:
     t_27 = time.perf_counter()
     _serving_reference(dev, MOE_ARCH)
     t_28 = time.perf_counter()
-    moe_serve_launches = _serving_main_path(dev, kernel_mods, MOE_ARCH,
-                                            "bfloat16")
+    moe_serve_launches, _ = _serving_main_path(dev, kernel_mods, MOE_ARCH,
+                                               "bfloat16")
     moe_train_launches = _moe_train(dev, kernel_mods)
     train_s = time.perf_counter() - t_train
     train_phase_s = (t_26 - t_train, t_27 - t_26, t_28 - t_27,
@@ -3547,13 +3754,33 @@ def main() -> int:
     train_launches = {n: train_launches[n] + moe_train_launches[n]
                       for n in kernel_mods}
 
+    # 29-31. The vlm and audio families: one flash launch a self block,
+    # the whisper encoder's non-causal.
+    from repro_torch.models.registry import get_config
+
+    t_fam = time.perf_counter()
+    _family_reference(dev)
+    t_30 = time.perf_counter()
+    vlm = get_config(VLM_ARCH)
+    vlm_self = vlm.n_layers - vlm.n_layers // vlm.cross_attn_every
+    vlm_launches, _ = _serving_main_path(dev, kernel_mods, VLM_ARCH,
+                                         "bfloat16", expect=(vlm_self, 0))
+    t_31 = time.perf_counter()
+    audio = get_config(AUDIO_ARCH)
+    audio_launches, audio_noncausal = _serving_main_path(
+        dev, kernel_mods, AUDIO_ARCH, "bfloat16", seq=AUDIO_S,
+        expect=(audio.n_layers + audio.encoder_layers, audio.encoder_layers))
+    fam_s = time.perf_counter() - t_fam
+    fam_phase_s = (t_30 - t_fam, t_31 - t_30, t_fam + fam_s - t_31)
+
     new_paths = {"race_rings": ring_launches, "open_rings": open_ring_launches,
                  "grid_rings": grid_ring_launches,
                  "checkpointed": ckpt_launches,
                  "workload_race": workload_launches,
                  "host_race": host_race_launches,
                  "host_open": host_open_launches,
-                 "train": train_launches, "moe_serve": moe_serve_launches}
+                 "train": train_launches, "moe_serve": moe_serve_launches,
+                 "vlm_serve": vlm_launches, "audio_serve": audio_launches}
     kernels[0]["path_launches"] = {
         "race": launches["pair_score"], "open": open_launches["pair_score"],
         "grid": grid_launches["pair_score"],
@@ -3571,9 +3798,12 @@ def main() -> int:
                                       batched_launches[entry["name"]],
                                   **{k: v[entry["name"]]
                                      for k, v in new_paths.items()}}
-    total_s = time.perf_counter() - t_start
+    flash = next(e for e in kernels if e["name"] == "flash_attention")
+    flash["noncausal_launches"] = {"audio_serve": audio_noncausal}
+    all_s = time.perf_counter() - t_start
+    total_s = t_fam - t_start
     before_s = total_s - rings_s - host_s - train_s
-    _line("done", f"{total_s:.1f} s in all; phases 19-21 {rings_s:.1f} s, "
+    _line("done", f"{all_s:.1f} s in all; phases 19-21 {rings_s:.1f} s, "
           f"{100 * rings_s / before_s:.1f}% added to phases "
           f"1-18's {before_s:.1f} s (19: {phase_s[0]:.1f} s, 20: "
           f"{phase_s[1]:.1f} s, 21: {phase_s[2]:.1f} s); phases 22-24 "
@@ -3585,7 +3815,10 @@ def main() -> int:
           f"{100 * train_s / (total_s - train_s):.1f}% added to phases "
           f"1-24's {total_s - train_s:.1f} s (25: {train_phase_s[0]:.1f} s, "
           f"26: {train_phase_s[1]:.1f} s, 27: {train_phase_s[2]:.1f} s, 28: "
-          f"{train_phase_s[3]:.1f} s)")
+          f"{train_phase_s[3]:.1f} s); phases 29-31 {fam_s:.1f} s, "
+          f"{100 * fam_s / total_s:.1f}% added to phases 1-28's "
+          f"{total_s:.1f} s (29: {fam_phase_s[0]:.1f} s, 30: "
+          f"{fam_phase_s[1]:.1f} s, 31: {fam_phase_s[2]:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

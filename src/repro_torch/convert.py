@@ -7,7 +7,7 @@ arrays come from any source (the reference package's fitted
 ``CategoryModel``, ``PhaseTables``, ``Model.init`` tree and training state
 in the parity tests, or a checkpoint), and land as tensors on the
 requested device.  Model trees go both ways in the reference's layout,
-block parameters stacked on a leading layer axis.
+the parameters of each block group stacked on a leading layer axis.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.regression import CategoryModel
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import STACKED, Model
 from repro_torch.smt.scan_engine import DeviceTables
 
 
@@ -90,15 +90,17 @@ def _paths(tree, prefix=()):
 
 def _unstacked(tree, model: Model) -> Dict[str, torch.Tensor]:
     """A reference-layout tree -> one CPU tensor per parameter of ``model``,
-    by its name.  Block leaves are stacked on a leading layer axis
-    (``tree["blocks"]["attn"]["wq"]`` is (L, d, H, hd)); layer ``i`` of
-    each goes to ``blocks.<i>``.  Every parameter must be found with its
-    shape, and every array used."""
+    by its name.  The leaves of each stacked group (``blocks``,
+    ``cross_blocks``, ``dec_cross``, ``encoder``: :data:`STACKED`) carry a
+    leading layer axis (``tree["blocks"]["attn"]["wq"]`` is (L, d, H, hd),
+    ``tree["cross_blocks"]["gate"]`` (L,)); layer ``i`` of each goes to
+    ``<group>.<i>``.  Every parameter must be found with its shape, and
+    every array used."""
     out, used = {}, set()
     for name, p in model.named_parameters():
         parts = name.split(".")
-        stacked = parts[0] == "blocks"
-        path = ("blocks",) + tuple(parts[2:]) if stacked else tuple(parts)
+        stacked = parts[0] in STACKED
+        path = (parts[0],) + tuple(parts[2:]) if stacked else tuple(parts)
         arr = tree
         for key in path:
             arr = arr[key]
@@ -117,20 +119,21 @@ def _unstacked(tree, model: Model) -> Dict[str, torch.Tensor]:
 
 def _stacked(tensors: Dict[str, torch.Tensor]) -> Dict:
     """The inverse of :func:`_unstacked`: tensors by parameter name -> the
-    reference's tree of host arrays, blocks stacked on a layer axis."""
+    reference's tree of host arrays, each stacked group on a layer axis."""
     tree: Dict = {}
     layers: Dict = {}
     for name, t in tensors.items():
         parts = name.split(".")
-        if parts[0] == "blocks":
-            layers.setdefault(tuple(parts[2:]), {})[int(parts[1])] = _numpy(t)
+        if parts[0] in STACKED:
+            key = (parts[0],) + tuple(parts[2:])
+            layers.setdefault(key, {})[int(parts[1])] = _numpy(t)
             continue
         node = tree
         for key in parts[:-1]:
             node = node.setdefault(key, {})
         node[parts[-1]] = _numpy(t)
     for path, by_layer in layers.items():
-        node = tree.setdefault("blocks", {})
+        node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.stack([by_layer[i] for i in range(len(by_layer))])

@@ -26,8 +26,10 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Launches of the CUDA kernel in this process;
 #: :func:`flash_attention_cuda` adds one per launch and nothing else
-#: touches it.
+#: touches it.  ``NONCAUSAL_LAUNCHES`` counts those of them made with
+#: ``causal=False`` (an encoder's).
 LAUNCHES = 0
+NONCAUSAL_LAUNCHES = 0
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -35,7 +37,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel: q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), all CUDA,
     contiguous, one of float32/bfloat16 -> (B, Sq, Hq, D) in q's dtype.
     Launches on the current stream and does not synchronise."""
-    global LAUNCHES
+    global LAUNCHES, NONCAUSAL_LAUNCHES
     check_inputs("flash_attention_cuda", (q.dtype,), q=q, k=k, v=v)
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention_cuda: q is {q.dtype}, not f32/bf16")
@@ -64,4 +66,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                hq, hkv, d, int(bool(causal)), int(window), d ** -0.5,
                DTYPES[q.dtype], stream)
     LAUNCHES += 1
+    NONCAUSAL_LAUNCHES += int(not causal)
     return out

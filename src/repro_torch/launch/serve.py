@@ -22,7 +22,11 @@ def serve_demo(arch: str, smoke: bool = True, n_requests: int = 12,
                seed: int = 0, device=None):
     """Serve ``n_requests`` random prompts (4-11 tokens, numpy seed
     ``seed``) through ``batch_slots`` slots with greedy decoding, on a model
-    whose float32 weights come from a generator seeded ``seed``."""
+    whose float32 weights come from a generator seeded ``seed``.  After the
+    prompts the same numpy generator draws, as the reference's, a standard
+    normal ``image_embeds`` (slots, n_image_tokens, d) for vlm or encoder
+    output ``enc`` (slots, encoder_seq, d) for audio, which every slot
+    attends."""
     device = resolve_device(device)
     cfg = get_config(arch, smoke=smoke, dtype="float32",
                      param_dtype="float32")
@@ -31,10 +35,17 @@ def serve_demo(arch: str, smoke: bool = True, n_requests: int = 12,
     engine = ServeEngine(model, max_len=max_len, batch_size=batch_slots)
     prompts = [rng.integers(0, cfg.vocab_size, size=rng.integers(4, 12))
                .astype(np.int32) for _ in range(n_requests)]
+    extras = None
+    key, seq = {"vlm": ("image_embeds", cfg.n_image_tokens),
+                "audio": ("enc", cfg.encoder_seq)}.get(cfg.family, (None, 0))
+    if key is not None:
+        extras = {key: torch.as_tensor(
+            rng.normal(size=(batch_slots, seq, cfg.d_model)),
+            dtype=torch.float32, device=device)}
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    outs = engine.generate(prompts, max_new_tokens=max_new)
+    outs = engine.generate(prompts, max_new_tokens=max_new, extras=extras)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0

@@ -1,11 +1,11 @@
-"""Attention: GQA/MQA/MHA with RoPE, causal and sliding-window masks, and
-single-token decode against a KV cache.
+"""Attention: GQA/MQA/MHA with RoPE, causal and sliding-window masks,
+cross-attention, and single-token decode against a KV cache.
 
 Full-sequence attention (prefill) routes on ``cfg.attention_impl``:
 ``"kernel"`` goes through :func:`repro_torch.kernels.flash_attention.ops.
 flash_attention` (the hand-written kernel on a GPU), ``"plain"`` through
-:func:`_sdpa`, which materialises the scores.  Decode attends with plain
-tensor code, as the reference does.
+:func:`_sdpa`, which materialises the scores.  Cross-attention and decode
+attend with plain tensor code whatever the route, as the reference does.
 """
 
 from __future__ import annotations
@@ -135,6 +135,22 @@ def attention(params: Attention, x, cfg: ModelConfig, positions=None,
         mask = _mask(s, s, causal, cfg.sliding_window, device=x.device)
         out = _sdpa(q, k, v, mask, cfg)
     return _out_proj(params, out, x.dtype)
+
+
+def cross_attention(params: Attention, x, kv_src, cfg: ModelConfig
+                    ) -> torch.Tensor:
+    """Cross-attention: queries from ``x`` (B, S, d), keys and values from
+    ``kv_src`` (B, T, d) (image patch embeddings or the audio encoder's
+    output).  No RoPE, no mask and no QKV biases (the reference projects
+    with bare products), and always :func:`_sdpa`."""
+    def proj(src, w):
+        b, t, d = src.shape
+        return dot(src, w.reshape(d, -1)).reshape(b, t, *w.shape[1:]
+                                                   ).to(x.dtype)
+
+    q = proj(x, params.wq)
+    k, v = proj(kv_src, params.wk), proj(kv_src, params.wv)
+    return _out_proj(params, _sdpa(q, k, v, None, cfg), x.dtype)
 
 
 # ------------------------------------------------------------------ decode

@@ -1,24 +1,38 @@
-"""Model assembly: the dense and moe families.
+"""Model assembly: the dense, moe, vlm and audio families.
 
 One :class:`Model` (an ``nn.Module``) per architecture, built from a
 :class:`ModelConfig`:
 
 * ``Model(cfg, device)`` then ``init_weights(generator)`` -> parameters in
-  the module (blocks in a ``ModuleList``, one per layer);
+  the module (each stacked group of the reference a ``ModuleList``, one
+  entry per layer);
 * ``forward(batch)``               -> (logits, aux), full sequence
                                       (training / prefill);
 * ``init_cache(batch, max_len)``   -> decode cache;
 * ``decode_step(cache, tokens)``   -> (logits, cache), one new token.
 
-Blocks are pre-norm: ``x += attn(n(x)); x += ffn(n(x))``, the feed-forward
-an MLP (dense) or routed experts plus shared ones (moe, whose blocks also
-return the load-balance loss).  ``cfg.remat`` recomputes each block in
-the backward pass: ``"full"`` keeps nothing, ``"dots"`` keeps the
-products' outputs, ``"none"`` keeps everything; all three give the same
-numbers.  The reference's other families (vlm, audio, hybrid, ssm) and
-decoding with a sliding window through a ring-buffer cache are not
-ported yet (ROADMAP.md, section 1, queue (c)); they raise
-``NotImplementedError``.
+Families:
+
+    dense   pre-norm blocks: ``x += attn(n(x)); x += ffn(n(x))``, the
+            feed-forward an MLP
+    moe     the MLP replaced by routed experts plus shared ones (the
+            blocks also return the load-balance loss)
+    vlm     every ``cross_attn_every``-th block is an extra gated image
+            cross-attention block (Llama-3.2-Vision style) over
+            precomputed patch embeddings (``batch["image_embeds"]``)
+    audio   whisper-style encoder-decoder: a non-causal encoder over
+            precomputed frame embeddings (``batch["audio_frames"]``), and
+            decoder blocks of self-attention, gated cross-attention to the
+            encoder's output, MLP
+
+A cross block adds ``tanh(gate)`` times its cross-attention, ``gate`` a
+float32 scalar that starts at 0.  ``cfg.remat`` recomputes each block (a
+vlm group, a decoder block with its cross block) in the backward pass:
+``"full"`` keeps nothing, ``"dots"`` keeps the products' outputs,
+``"none"`` keeps everything; all three give the same numbers.  The
+reference's hybrid and ssm families and decoding with a sliding window
+through a ring-buffer cache are not ported yet (ROADMAP.md, section 1,
+queue (c)); they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,7 +52,9 @@ from repro_torch.models.config import ModelConfig
 
 F32 = torch.float32
 _NOT_PORTED = "is not ported yet (ROADMAP.md, section 1, queue (c))"
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm", "audio")
+#: The parameter groups the reference stacks on a leading layer axis.
+STACKED = ("blocks", "cross_blocks", "dec_cross", "encoder")
 
 #: The operators whose outputs ``remat="dots"`` keeps: the products.
 _PRODUCTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -63,8 +79,9 @@ def _remat(fn, mode: str, *args):
 
 def reference_ndim(name: str, p: torch.Tensor) -> int:
     """The rank parameter ``name`` has in the reference's tree, where every
-    block parameter is stacked on a leading layer axis."""
-    return p.dim() + int(name.startswith("blocks."))
+    parameter of a stacked group (:data:`STACKED`) has a leading layer
+    axis."""
+    return p.dim() + int(name.split(".", 1)[0] in STACKED)
 
 
 class Block(nn.Module):
@@ -92,13 +109,46 @@ class Block(nn.Module):
             return moe_mod.moe_layer(self.moe, h, self.cfg)
         return self.mlp(h), torch.zeros((), dtype=F32, device=h.device)
 
-    def forward(self, x, positions=None):
+    def forward(self, x, positions=None, causal: bool = True):
         """(B, S, d) -> ((B, S, d), aux) over the full sequence."""
         cfg = self.cfg
         a = layers.apply_norm(cfg.norm, self.ln1, x)
-        x = x + attn_mod.attention(self.attn, a, cfg, positions=positions)
+        x = x + attn_mod.attention(self.attn, a, cfg, positions=positions,
+                                   causal=causal)
         y, aux = self.ffn(layers.apply_norm(cfg.norm, self.ln2, x))
         return x + y, aux
+
+
+class CrossBlock(nn.Module):
+    """Gated cross-attention to ``kv_src``, then an MLP, both pre-norm."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = layers.Norm(cfg.d_model, device)
+        self.ln2 = layers.Norm(cfg.d_model, device)
+        self.attn = attn_mod.Attention(cfg, device=device)
+        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_activation,
+                              cfg.weight_dtype(), device)
+        self.gate = layers.param((), F32, device)
+
+    def reset_parameters(self, generator) -> None:
+        for m in (self.ln1, self.ln2, self.attn, self.mlp):
+            m.reset_parameters(generator)
+        with torch.no_grad():
+            self.gate.zero_()
+
+    def forward(self, x, kv_src):
+        cfg = self.cfg
+        a = layers.apply_norm(cfg.norm, self.ln1, x)
+        ca = attn_mod.cross_attention(self.attn, a, kv_src, cfg)
+        # The float32 gate's product is cast back: the stream keeps x's type.
+        x = x + (torch.tanh(self.gate) * ca.float()).to(x.dtype)
+        return x + self.mlp(layers.apply_norm(cfg.norm, self.ln2, x))
+
+
+def _blocks(cls, n: int, cfg: ModelConfig, device) -> nn.ModuleList:
+    return nn.ModuleList([cls(cfg, device) for _ in range(n)])
 
 
 class Model(nn.Module):
@@ -110,20 +160,32 @@ class Model(nn.Module):
         wdt = cfg.weight_dtype()
         self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, wdt, device)
         self.final_norm = layers.Norm(cfg.d_model, device)
-        self.blocks = nn.ModuleList(
-            [Block(cfg, device) for _ in range(cfg.n_layers)])
+        n_self = cfg.n_layers
+        if cfg.family == "vlm":
+            n_cross = cfg.n_layers // cfg.cross_attn_every
+            n_self = cfg.n_layers - n_cross
+            if n_self != n_cross * (cfg.cross_attn_every - 1):
+                raise ValueError(f"vlm: {cfg.n_layers} layers do not make "
+                                 f"whole groups of {cfg.cross_attn_every}")
+        self.blocks = _blocks(Block, n_self, cfg, device)
+        if cfg.family == "vlm":
+            self.cross_blocks = _blocks(CrossBlock, n_cross, cfg, device)
+        if cfg.family == "audio":
+            self.dec_cross = _blocks(CrossBlock, cfg.n_layers, cfg, device)
+            self.encoder = _blocks(Block, cfg.encoder_layers, cfg, device)
+            self.enc_norm = layers.Norm(cfg.d_model, device)
         self.unembed = (None if cfg.tie_embeddings else
                         layers.Unembed(cfg.d_model, cfg.vocab_size, wdt, device))
 
     def init_weights(self, generator: torch.Generator) -> "Model":
         """Draw every parameter from ``generator`` (on the model's device):
-        truncated normals at +-2 sigma, norms at 1, biases at 0."""
-        self.embed.reset_parameters(generator)
-        self.final_norm.reset_parameters(generator)
-        for blk in self.blocks:
-            blk.reset_parameters(generator)
-        if self.unembed is not None:
-            self.unembed.reset_parameters(generator)
+        truncated normals at +-2 sigma, norms at 1, biases and gates at 0."""
+        for m in self.children():
+            if isinstance(m, nn.ModuleList):
+                for blk in m:
+                    blk.reset_parameters(generator)
+            else:
+                m.reset_parameters(generator)
         return self
 
     @property
@@ -143,17 +205,62 @@ class Model(nn.Module):
         x = layers.embed(self.embed.table, tokens, scale=self.cfg.embed_scale)
         return x.to(self.cfg.activation_dtype())
 
+    def _extra(self, arr):
+        """A batch's embeddings in the activation dtype, on the device."""
+        return torch.as_tensor(arr, device=self.device).to(
+            self.cfg.activation_dtype())
+
+    def _encoder(self, frames):
+        """The whisper encoder over frame embeddings (B, T, d): non-causal
+        self-attention, with RoPE at positions 0..T-1 as the reference's,
+        then ``enc_norm``."""
+        x = self._extra(frames)
+        for blk in self.encoder:
+            x, _ = _remat(functools.partial(blk, causal=False), self.cfg.remat,
+                          x)
+        return layers.apply_norm(self.cfg.norm, self.enc_norm, x)
+
     # ------------------------------------------------------------ forward
     def forward(self, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward.  batch: tokens (B, S).
+        """Full-sequence forward.  batch: tokens (B, S), and for vlm
+        ``image_embeds`` (B, n_image_tokens, d), for audio ``audio_frames``
+        (B, encoder_seq, d).
 
         Returns (logits (B, S, V) f32, aux_loss scalar)."""
+        cfg = self.cfg
         x = self._embed(batch["tokens"])
         aux = torch.zeros((), dtype=F32, device=x.device)
-        for blk in self.blocks:
-            x, a = _remat(blk, self.cfg.remat, x)
-            aux = aux + a
+        if cfg.family == "vlm":
+            kv_src = self._extra(batch["image_embeds"])
+            for g in range(len(self.cross_blocks)):
+                x, a = _remat(self._vlm_group, cfg.remat, x, kv_src, g)
+                aux = aux + a
+        elif cfg.family == "audio":
+            enc = self._encoder(batch["audio_frames"])
+            for blk, cross in zip(self.blocks, self.dec_cross):
+                x, a = _remat(self._decoder_block, cfg.remat, x, enc, blk,
+                              cross)
+                aux = aux + a
+        else:
+            for blk in self.blocks:
+                x, a = _remat(blk, cfg.remat, x)
+                aux = aux + a
         return self._logits(x), aux
+
+    def _vlm_group(self, x, kv_src, g: int):
+        """Group ``g``: self blocks ``g * per_group ...`` (the reference
+        reshapes its stacked blocks row-major), then cross block ``g``."""
+        per_group = self.cfg.cross_attn_every - 1
+        aux = torch.zeros((), dtype=F32, device=x.device)
+        for blk in self.blocks[g * per_group:(g + 1) * per_group]:
+            x, a = blk(x)
+            aux = aux + a
+        return self.cross_blocks[g](x, kv_src), aux
+
+    @staticmethod
+    def _decoder_block(x, enc, blk, cross):
+        x, aux = blk(x)
+        return cross(x, enc), aux
 
     # -------------------------------------------------------------- cache
     def cache_len(self, max_len: int) -> int:
@@ -163,17 +270,28 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_len: int,
                    extras: Optional[Dict] = None) -> Dict:
-        """Decode cache: per-slot positions and the KV caches of every
-        layer, (L, B, cache_len, Hkv, hd) in the activation dtype."""
+        """Decode cache: per-slot positions and the KV caches of every self
+        block, (L, B, cache_len, Hkv, hd) in the activation dtype; for vlm
+        ``image_embeds`` (B, n_image_tokens, d), for audio the encoder's
+        output ``enc`` (B, encoder_seq, d), zeros unless ``extras`` gives
+        them (``extras`` replaces any entry)."""
         cfg = self.cfg
         dev = self.device
+        dt = cfg.activation_dtype()
         cl = self.cache_len(max_len)
-        shape = (cfg.n_layers, batch, cl, cfg.n_kv_heads, cfg.resolved_head_dim)
+        shape = (len(self.blocks), batch, cl, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
         cache = {
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=cfg.activation_dtype(), device=dev),
-            "v": torch.zeros(shape, dtype=cfg.activation_dtype(), device=dev),
+            "k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev),
         }
+        if cfg.family == "vlm":
+            cache["image_embeds"] = torch.zeros(
+                (batch, cfg.n_image_tokens, cfg.d_model), dtype=dt, device=dev)
+        if cfg.family == "audio":
+            cache["enc"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                       dtype=dt, device=dev)
         if extras:
             cache.update(extras)
         return cache
@@ -183,24 +301,45 @@ class Model(nn.Module):
         """tokens: (B, 1) -> (logits (B, 1, V), cache).
 
         The returned cache holds the same K/V tensors, written in place at
-        each slot's position, and the positions advanced by one."""
+        each slot's position, and the positions advanced by one.  Cross
+        blocks attend ``cache["image_embeds"]`` (vlm) or ``cache["enc"]``
+        (audio)."""
         cfg = self.cfg
         x = self._embed(tokens)
         pos = cache["pos"]
-        for i, blk in enumerate(self.blocks):
-            a = layers.apply_norm(cfg.norm, blk.ln1, x)
-            att = self._decode_attn(blk.attn, a, cache["k"][i], cache["v"][i],
-                                    pos)
-            x = x + att
-            y, _aux = blk.ffn(layers.apply_norm(cfg.norm, blk.ln2, x))
-            x = x + y
+        k, v = cache["k"], cache["v"]
+        if cfg.family == "vlm":
+            per_group = cfg.cross_attn_every - 1
+            for g, cross in enumerate(self.cross_blocks):
+                for i in range(g * per_group, (g + 1) * per_group):
+                    x = self._decode_block(self.blocks[i], x, k[i], v[i], pos)
+                x = cross(x, cache["image_embeds"])
+        elif cfg.family == "audio":
+            for i, (blk, cross) in enumerate(zip(self.blocks, self.dec_cross)):
+                x = self._decode_block(blk, x, k[i], v[i], pos)
+                x = cross(x, cache["enc"])
+        else:
+            for i, blk in enumerate(self.blocks):
+                x = self._decode_block(blk, x, k[i], v[i], pos)
         cache = dict(cache, pos=pos + 1)
         return self._logits(x), cache
 
-    def _decode_attn(self, p_attn, a, k_c, v_c, pos):
-        """Single-token attention against the KV cache."""
+    def _decode_block(self, blk, x, k_c, v_c, pos):
+        """One self block on one token."""
         cfg = self.cfg
-        if cfg.sliding_window > 0 and cfg.sliding_window <= k_c.shape[1]:
+        a = layers.apply_norm(cfg.norm, blk.ln1, x)
+        x = x + self._decode_attn(blk.attn, a, k_c, v_c, pos)
+        y, _aux = blk.ffn(layers.apply_norm(cfg.norm, blk.ln2, x))
+        return x + y
+
+    def _decode_attn(self, p_attn, a, k_c, v_c, pos):
+        """Single-token attention against the KV cache.  A window that
+        fits the cache makes it a ring buffer, except in the vlm and audio
+        decoders, which attend through ``decode_attention`` whatever the
+        window, as the reference's."""
+        cfg = self.cfg
+        if (cfg.family not in ("vlm", "audio") and cfg.sliding_window > 0
+                and cfg.sliding_window <= k_c.shape[1]):
             raise NotImplementedError(
                 f"sliding-window decoding through a ring buffer {_NOT_PORTED}")
         att, _, _ = attn_mod.decode_attention(p_attn, a, k_c, v_c, pos, cfg)

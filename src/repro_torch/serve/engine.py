@@ -31,15 +31,17 @@ class ServeEngine:
     # ----------------------------------------------------------- prefill
     @torch.no_grad()
     def prefill(self, batch) -> torch.Tensor:
-        """Full-sequence forward of ``batch["tokens"]`` (B, S) -> logits
-        (B, S, V) float32; attention routes on ``cfg.attention_impl``."""
+        """Full-sequence forward of ``batch`` -> logits (B, S, V) float32:
+        ``tokens`` (B, S), with ``image_embeds`` (vlm) or ``audio_frames``
+        (audio); attention routes on ``cfg.attention_impl``."""
         logits, _aux = self.model.forward(batch)
         return logits
 
     @torch.no_grad()
     def prefill_into_cache(self, tokens, extras: Optional[Dict] = None):
         """Sequential prefill through decode steps (the semantics path; the
-        flash prefill above is the fast one)."""
+        flash prefill above is the fast one).  ``extras`` go into the cache
+        (``image_embeds``, or the encoder's output ``enc``)."""
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
         cache = self.model.init_cache(b, self.max_len, extras=extras)
@@ -57,7 +59,8 @@ class ServeEngine:
     # ---------------------------------------------- continuous batching
     def reset_slots(self, cache, slot_mask: np.ndarray):
         """Reset the position of every True slot to 0.  Stale KV entries
-        need no clearing: the per-slot position mask hides them."""
+        need no clearing: the per-slot position mask hides them.  A slot's
+        ``image_embeds`` or ``enc`` stay as they are, as the reference's."""
         reset = torch.as_tensor(np.asarray(slot_mask, bool), device=self.device)
         cache = dict(cache)
         cache["pos"] = torch.where(reset, torch.zeros_like(cache["pos"]),

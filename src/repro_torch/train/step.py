@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -38,6 +39,21 @@ def cross_entropy(logits, labels, z_loss: float = 1e-4):
     ce = torch.mean(lse - gold)
     zl = z_loss * torch.mean(torch.square(lse))
     return ce + zl, ce
+
+
+def _is_float(v) -> bool:
+    if isinstance(v, torch.Tensor):
+        return v.is_floating_point()
+    return np.asarray(v).dtype.kind == "f"
+
+
+def _grads(total, leaves):
+    """d total / d leaf for every leaf; 0 for a leaf outside the graph (the
+    QKV biases of a cross block, which cross-attention does not add), as
+    the reference's gradient of an unused parameter."""
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)]
 
 
 def _fresh_state(model: Model, opt: AdamWConfig) -> Dict:
@@ -96,16 +112,20 @@ class TrainStepBuilder:
 
     # ------------------------------------------------------------ step
     def train_step(self, state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
-        """One step on ``batch`` (``tokens`` and ``labels``, (B, S))."""
+        """One step on ``batch``: ``tokens`` and ``labels`` (B, S), cast to
+        int32, and any float entry (``image_embeds``, ``audio_frames``) in
+        the activation dtype."""
         params = state["params"]
         names = list(params)
         leaves = [params[n] for n in names]
         dev = leaves[0].device
-        batch = {k: to_device(v, torch.int32, dev) for k, v in batch.items()}
+        act = self.model.cfg.activation_dtype()
+        batch = {k: to_device(v, act if _is_float(v) else torch.int32, dev)
+                 for k, v in batch.items()}
 
         if self.grad_accum <= 1:
             total, metrics = self.loss_fn(params, batch)
-            grads = torch.autograd.grad(total, leaves)
+            grads = _grads(total, leaves)
         else:
             # Contiguous microbatches, gradients summed in float32.
             n = self.grad_accum
@@ -116,7 +136,7 @@ class TrainStepBuilder:
                 mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
                       for k, v in batch.items()}
                 total, m = self.loss_fn(params, mb)
-                for acc, g in zip(g_sum, torch.autograd.grad(total, leaves)):
+                for acc, g in zip(g_sum, _grads(total, leaves)):
                     acc += g
                 loss_sum = loss_sum + m["loss"].detach()
             grads = [g / n for g in g_sum]

@@ -51,7 +51,9 @@ def _pair(arch, impl="xla", seed=0):
 
 # -------------------------------------------------------------- configs
 def test_configs_match_the_reference():
-    assert list_archs() == ["llama3.2-3b", "qwen1.5-0.5b", "qwen2-moe-a2.7b"]
+    assert list_archs() == ["llama-3.2-vision-11b", "llama3.2-3b",
+                            "qwen1.5-0.5b", "qwen2-moe-a2.7b",
+                            "whisper-large-v3"]
     for arch in ARCHS:
         for smoke in (False, True):
             ours = dataclasses.asdict(get_config(arch, smoke=smoke))
@@ -253,7 +255,7 @@ def test_decode_write_past_the_cache_is_dropped():
 
 def test_unported_families_and_ring_decode_raise():
     cfg = get_config("qwen1.5-0.5b", smoke=True)
-    for family in ("vlm", "audio", "hybrid", "ssm"):
+    for family in ("hybrid", "ssm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(cfg.scaled(family=family), torch.device("meta"))
     model = build_model(cfg.scaled(sliding_window=4), device="cpu")
