@@ -34,10 +34,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 8. the serving kernels (``flash_attention``, ``decode_attention``,
    ``rmsnorm``) against their plain versions on the card, at the reference
    tests' shapes and the serving path's (1e-4 abs/rel in float32, 2e-2 in
-   bfloat16), flash attention at the shapes the vlm and audio main paths
-   give it (``FLASH_PATH_SHAPES``, both types) and at the edges of its
-   tensor-core design (``FLASH_EDGES``, both types; rows that see no key
-   exactly 0);
+   bfloat16), flash attention at the shapes the vlm, audio, gemma,
+   starcoder2, hymba and kimi main paths give it (``FLASH_PATH_SHAPES``,
+   both types; windows of 4096 and 2048, kimi-k2's D 112 through the
+   wrapper's zero-padded copies) and at the edges of its tensor-core
+   design (``FLASH_EDGES``, both types; rows that see no key exactly 0);
+   inputs drawn on the card;
 9. the serving path's reference check, card against CPU: qwen1.5-0.5b at
    full width and depth 2, the same seeded weights on both: prefill logits
    of 1 x 256 tokens and the logits after 16 decode steps (1e-4 of the
@@ -57,7 +59,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    pre-pass and the attention kernel are timed apart under the profiler,
    and the bfloat16 kernel is timed at the same shape; then flash
    attention at ``FLASH_PATH_SHAPES`` in both types beside its plain
-   version, its bound and SDPA with the same ``is_causal``;
+   version, its bound (the pairs the mask keeps) and SDPA with the same
+   mask (``is_causal``, or a boolean window mask) and ``enable_gqa``, the
+   zero-padded copies at D 112 timed apart;
 12. the open system's reference check, card against CPU: ``ClusterSim``
    with ``engine="scan"`` at capacity 16 (15 jobs at quantum 0, then 3 at
    every odd quantum), policies ``adjacent``, ``synpa4`` with fifo and
@@ -212,7 +216,28 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    depth (32 encoder and 32 decoder layers, bfloat16): a prefill of 4 x
    448 tokens (whisper's text context) over 4 x 1500 frames launches
    ``flash_attention`` exactly 64 times, 32 of them non-causal (the
-   encoder's), then ``serve_demo`` at its defaults.
+   encoder's), then ``serve_demo`` at its defaults;
+32. the last five architectures' reference check, card against CPU,
+   float32, ``attention_impl="kernel"``, weights drawn on the card: the
+   smoke configs of gemma-7b, starcoder2-3b, kimi-k2-1t-a32b, hymba-1.5b
+   and rwkv6-3b (a prefill of 2 x 40 past the smoke windows of 16, then
+   56 decode steps, greedy from step 40, which wrap the 16-slot rings
+   three times, slot 1 reset after step 24, zeroing its Mamba or RWKV
+   state: logits within 2e-5 of the largest |logit|, greedy tokens
+   identical); phase 9 for gemma-7b, starcoder2-3b, hymba-1.5b and
+   rwkv6-3b at full width and depth 2; then phase 25's three training
+   steps for hymba's and rwkv6's smoke configs;
+33-37. phase 10 in bfloat16 for gemma-7b (4 x 2048, 28 flash launches
+   at D 256), starcoder2-3b (2 x 6144, past its 4096-token window, 30
+   launches; the decode step on a 4096-slot ring at position 6000),
+   hymba-1.5b (2 x 4096, 32 launches; the step on a 2048-slot ring at
+   position 3000 and the Mamba states), rwkv6-3b (4 x 2048, no launch;
+   the step on the RWKV states) and kimi-k2-1t-a32b at full width and
+   depth 1 of 61 (4 x 2048, 1 launch at D 112; no ``serve_demo``, whose
+   float32 copy of the layer would be 78 GB): each prints a summary
+   (prefill wall and tokens/s, decode-step wall and kernels a step,
+   device busy, flash launches a prefill, peak memory), hymba and rwkv6
+   also one block's time loop apart from its products (``[scan]``).
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -296,12 +321,43 @@ VLM_ARCH, AUDIO_ARCH = "llama-3.2-vision-11b", "whisper-large-v3"
 VLM_REF_DEPTH, AUDIO_REF_DEPTH, AUDIO_S = 5, 2, 448
 #: The gate every cross block gets in the reference checks.
 GATE = 0.5
-#: Flash attention at the vlm and audio main paths' shapes: ((B, Sq, Skv,
-#: Hq, Hkv, D), causal): llama-3.2-vision-11b's self blocks, the whisper
-#: encoder's bidirectional attention over 1500 frames.
-#: tests/test_torch_vlm_audio_gpu.py holds the kernel to the same two.
-FLASH_PATH_SHAPES = [((PREFILL_B, PREFILL_S, PREFILL_S, 32, 8, 128), True),
-                     ((PREFILL_B, 1500, 1500, 20, 20, 64), False)]
+#: The last five architectures (phases 32-37): the configurations; each
+#: main path's prefill (batch, sequence), decode cache (max_len, the
+#: slots' position) and whether it runs ``serve_demo``; kimi-k2's depth
+#: (one of its 61 layers: one layer's routed experts alone are 33.8 GB in
+#: bfloat16).  starcoder2-3b's prefill runs past its 4096-token window and
+#: its decode cache is a 4096-slot ring, hymba-1.5b's a 2048-slot one,
+#: each step timed with the slots' position past the window.
+GEMMA_ARCH, STARCODER_ARCH, KIMI_ARCH = ("gemma-7b", "starcoder2-3b",
+                                         "kimi-k2-1t-a32b")
+HYMBA_ARCH, RWKV_ARCH = "hymba-1.5b", "rwkv6-3b"
+NEW_ARCHS = (GEMMA_ARCH, STARCODER_ARCH, KIMI_ARCH, HYMBA_ARCH, RWKV_ARCH)
+NEW_PATHS = {
+    GEMMA_ARCH: dict(batch=4, seq=2048, decode=(64, 32), demo=True),
+    STARCODER_ARCH: dict(batch=2, seq=6144, decode=(8192, 6000), demo=True),
+    HYMBA_ARCH: dict(batch=2, seq=4096, decode=(4096, 3000), demo=True),
+    RWKV_ARCH: dict(batch=4, seq=2048, decode=(64, 32), demo=True),
+    KIMI_ARCH: dict(batch=4, seq=2048, decode=(64, 32), demo=False,
+                    overrides={"n_layers": 1}),
+}
+#: The new families' reference check (phase 32): the smoke configs'
+#: prompt (past starcoder2's and hymba's smoke windows of 16), decode
+#: steps (the prompt's, then greedy ones; the 16-slot rings wrap three
+#: times) and the step after which slot 1 is reset.
+NEW_REF_PROMPT, NEW_REF_STEPS, NEW_REF_RESET = 40, 56, 24
+#: Flash attention at the main paths' shapes: ((B, Sq, Skv, Hq, Hkv, D),
+#: causal, window): llama-3.2-vision-11b's self blocks, the whisper
+#: encoder's bidirectional attention over 1500 frames, gemma-7b's D 256,
+#: starcoder2-3b's window of 4096 over 6144 tokens, hymba-1.5b's 25/5
+#: heads and window of 2048, kimi-k2's D 112 (zero-padded to 128).
+#: tests/test_torch_vlm_audio_gpu.py holds the kernel to the first two,
+#: tests/test_torch_families_gpu.py to D 112 and the smoke configs' D.
+FLASH_PATH_SHAPES = [((PREFILL_B, PREFILL_S, PREFILL_S, 32, 8, 128), True, 0),
+                     ((PREFILL_B, 1500, 1500, 20, 20, 64), False, 0),
+                     ((4, 2048, 2048, 16, 16, 256), True, 0),
+                     ((2, 6144, 6144, 24, 2, 128), True, 4096),
+                     ((2, 4096, 4096, 25, 5, 64), True, 2048),
+                     ((4, 2048, 2048, 64, 8, 112), True, 0)]
 #: Flash attention's edge cases: (B, Sq, Skv, Hq, Hkv, D, causal, window,
 #: q scale).  Lengths that are multiples of no tile, Sq != Skv both ways,
 #: GQA groups 1, 4 and 8, windows whose first key falls mid-tile, q scaled
@@ -365,14 +421,40 @@ def _wall_ms(fn, reps: int = 3) -> float:
     return float(np.median(out))
 
 
+class _DeviceEvents:
+    """One name's device activities (kernels, copies, sets) in a profile:
+    ``key``, ``count`` and ``self_device_time_total`` (us), the fields
+    ``key_averages()`` gives them."""
+
+    def __init__(self, key: str):
+        self.key, self.count, self.self_device_time_total = key, 0, 0.0
+
+
+def _device_events(prof):
+    """The profile's device activities summed by name from the raw trace.
+    These are ``key_averages()``'s CUDA entries without its tree of host
+    events, whose building takes minutes on a trace of 100 k launches."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        entry = by_name.get(e.name())
+        if entry is None:
+            entry = by_name[e.name()] = _DeviceEvents(e.name())
+        entry.count += 1
+        entry.self_device_time_total += e.duration_ns() / 1e3
+    return list(by_name.values())
+
+
 def _device_profile(fn, tries: int = 6):
     """Run ``fn`` once under ``torch.profiler``: (profiled wall seconds,
-    the CUDA kernels' key averages, a function giving one's device us).
-    A window in which the profiler recorded no CUDA event at all lost its
-    events (every caller's ``fn`` launches kernels): it is profiled again,
-    up to ``tries`` times."""
+    the CUDA kernels' sums by name (:func:`_device_events`), a function
+    giving one's device us).  A window in which the profiler recorded no
+    CUDA event at all lost its events (every caller's ``fn`` launches
+    kernels): it is profiled again, up to ``tries`` times."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
@@ -383,8 +465,7 @@ def _device_profile(fn, tries: int = 6):
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kernels_seen = [e for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA]
+        kernels_seen = _device_events(prof)
         if kernels_seen:
             break
         _line("profile", "the profiler recorded no CUDA event in a window "
@@ -737,9 +818,12 @@ def _serving_kernels_check(dev, rng):
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rmsnorm.ref import rms_norm_plain
 
+    # Standard normals drawn on the card: the main paths' shapes hold up
+    # to 59 M values a tensor, slow to draw on the host.
+    gen = torch.Generator(device=dev).manual_seed(8)
+
     def normal(shape, dtype=torch.float32):
-        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
-                               device=dev).to(dtype)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     mods = {"flash_attention": fa_kernel, "decode_attention": da_kernel,
             "rmsnorm": rn_kernel}
@@ -768,9 +852,9 @@ def _serving_kernels_check(dev, rng):
                   torch.float32, 1.0))
     cases.append(((PREFILL_B, PREFILL_S, PREFILL_S, 16, 16, 128), True, 0,
                   torch.bfloat16, 1.0))
-    for shape, causal in FLASH_PATH_SHAPES:
+    for shape, causal, window in FLASH_PATH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            cases.append((shape, causal, 0, dtype, 1.0))
+            cases.append((shape, causal, window, dtype, 1.0))
     # The tensor-core design's edges, in both types (as
     # tests/test_torch_attention_gpu.py::FLASH_EDGES): lengths that are
     # multiples of no tile, Sq != Skv, GQA groups 1, 4 and 8, windows
@@ -954,12 +1038,16 @@ def _serving_reference(dev, arch: str = SERVE_ARCH, twins=None) -> None:
 
 def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
                        dtype: str = "float32", seq: int = PREFILL_S,
-                       expect=None):
-    """Phases 10, 28, 30 and 31: ``arch``'s serving main path at full width
-    and depth in ``dtype``: one prefill of ``PREFILL_B`` x ``seq`` tokens
-    (with the batch's image or frame embeddings for vlm and audio), which
-    must launch ``flash_attention`` ``expect`` = (all, non-causal) times
-    (by default once a layer, causally), timings and profiles, then
+                       expect=None, prefill_b: int = PREFILL_B, decode=(64, 32),
+                       demo: bool = True, overrides=None):
+    """Phases 10, 28, 30, 31 and 33-37: ``arch``'s serving main path at
+    full width and depth (or ``overrides``) in ``dtype``: one prefill of
+    ``prefill_b`` x ``seq`` tokens (with the batch's image or frame
+    embeddings for vlm and audio), which must launch ``flash_attention``
+    ``expect`` = (all, non-causal) times (by default once a layer,
+    causally), timings and profiles, a decode step of 4 slots on a cache
+    of ``decode`` = (max_len, the slots' position), the time loops apart
+    from the products for hybrid and ssm, then, with ``demo``,
     ``serve_demo`` (its own float32 model, built once the prefill's model
     is gone).  Returns every kernel's launches in the prefill and
     ``serve_demo``, and the prefill's non-causal flash launches."""
@@ -971,15 +1059,21 @@ def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
     from repro_torch.serve.engine import ServeEngine
 
     cfg = get_config(arch, dtype=dtype, param_dtype=dtype,
-                     attention_impl="kernel")
+                     attention_impl="kernel", **(overrides or {}))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device=dev, seed=0)
+    # The draws' float32 buffers (22.5 GB for one of kimi-k2's expert
+    # stacks) go back to the card, not to blocks that later tensors split.
+    torch.cuda.empty_cache()
     n_params = sum(p.numel() for p in model.parameters())
-    engine = ServeEngine(model, max_len=64, batch_size=4)
+    max_len, at = decode
+    engine = ServeEngine(model, max_len=max_len, batch_size=4)
     rng = np.random.default_rng(10)
     toks = torch.as_tensor(rng.integers(
-        0, cfg.vocab_size, (PREFILL_B, seq)).astype(np.int32), device=dev)
+        0, cfg.vocab_size, (prefill_b, seq)).astype(np.int32), device=dev)
     extras = {k: torch.as_tensor(v, device=dev).to(cfg.activation_dtype())
-              for k, v in _batch_extras(cfg, rng, PREFILL_B).items()}
+              for k, v in _batch_extras(cfg, rng, prefill_b).items()}
     batch = {"tokens": toks, **extras}
     expect = expect or (cfg.n_layers, 0)
     fa = kernel_mods["flash_attention"]
@@ -994,7 +1088,7 @@ def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
     first_s = time.perf_counter() - t0
     prefill_launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
     noncausal = fa.NONCAUSAL_LAUNCHES
-    if tuple(logits.shape) != (PREFILL_B, seq, cfg.vocab_size):
+    if tuple(logits.shape) != (prefill_b, seq, cfg.vocab_size):
         raise AssertionError(f"prefill logits {tuple(logits.shape)}")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("prefill logits not finite")
@@ -1003,7 +1097,7 @@ def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
     _line("serve", f"{arch} full width ({cfg.n_layers} layers"
           + (f" + {cfg.encoder_layers} encoder" if cfg.family == "audio"
              else "")
-          + f", {n_params} parameters, {dtype}): prefill {PREFILL_B} x "
+          + f", {n_params} parameters, {dtype}): prefill {prefill_b} x "
           f"{seq} {shapes} first call {first_s:.3f} s, launches "
           f"{prefill_launches}, {noncausal} of flash's non-causal")
     if (prefill_launches["flash_attention"], noncausal) != tuple(expect):
@@ -1014,20 +1108,26 @@ def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
 
     # Wall times (host clock, synchronised; median of 3 after a warm call).
     prefill_ms = _wall_ms(lambda: engine.prefill(batch))
-    n_tok = PREFILL_B * seq
-    cache = model.init_cache(4, 64, extras=_cache_extras(model, extras))
-    cache["pos"].fill_(32)
+    n_tok = prefill_b * seq
+    cache = model.init_cache(4, max_len, extras=_cache_extras(model, extras))
+    cache["pos"].fill_(at)
     step_tok = torch.as_tensor(np.arange(4, dtype=np.int32)[:, None],
                                device=dev)
     step_ms = _wall_ms(lambda: engine.serve_step(cache, step_tok), reps=9)
-    _line("serve", f"prefill {PREFILL_B} x {seq}: {prefill_ms:.3f} ms, "
+    ring = ("" if "k" not in cache else
+            f", a KV cache of {cache['k'].shape[2]} slots")
+    _line("serve", f"prefill {prefill_b} x {seq}: {prefill_ms:.3f} ms, "
           f"{n_tok / prefill_ms * 1e3:.1f} tokens/s; decode step (4 slots, "
-          f"position 32): {step_ms:.3f} ms, {4 / step_ms * 1e3:.1f} tokens/s")
+          f"position {at}{ring}): {step_ms:.3f} ms, "
+          f"{4 / step_ms * 1e3:.1f} tokens/s")
+    summary = {}
     for label, fn in (("prefill", lambda: engine.prefill(batch)),
                       ("decode step", lambda: engine.serve_step(cache,
                                                                 step_tok))):
         wall, seen, dev_us = _device_profile(fn)
         busy_ms = sum(dev_us(e) for e in seen) / 1e3
+        summary[label] = (sum(e.count for e in seen),
+                          100 * busy_ms / (wall * 1e3))
         _line("profile", f"one {label} under the profiler: wall "
               f"{wall * 1e3:.3f} ms, {sum(e.count for e in seen)} kernels, "
               f"device busy {busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.1f}%"
@@ -1042,23 +1142,92 @@ def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
             _line("profile", f"{label}: flash's {name}: "
                   f"{sum(dev_us(e) for e in mine) / 1e3:.3f} ms in "
                   f"{sum(e.count for e in mine)} launches")
+    if cfg.family in ("hybrid", "ssm"):
+        _scan_split(model, prefill_b, seq, prefill_ms)
+    peak = torch.cuda.max_memory_allocated()
+    (n_pre, busy_pre), (n_step, busy_step) = (summary["prefill"],
+                                              summary["decode step"])
+    _line("serve", f"{arch} summary ({dtype}, {cfg.n_layers} layers): "
+          f"prefill {prefill_b} x {seq} {prefill_ms:.3f} ms, "
+          f"{n_tok / prefill_ms * 1e3:.1f} tokens/s, {n_pre} kernels, device"
+          f" busy {busy_pre:.1f}%; decode step {step_ms:.3f} ms, {n_step} "
+          f"kernels a step, device busy {busy_step:.1f}%; flash launches a "
+          f"prefill {prefill_launches['flash_attention']}; peak memory "
+          f"{peak / 1e9:.2f} GB ({peak / 2**30:.3f} GiB)")
     del model, engine, cache, batch, extras
     torch.cuda.empty_cache()
 
-    for mod in kernel_mods.values():
-        mod.LAUNCHES = 0
-    demo = serve_demo(arch, smoke=False, device=dev)
-    launches = {n: prefill_launches[n] + m.LAUNCHES
-                for n, m in kernel_mods.items()}
-    _line("serve", f"serve_demo: {demo['requests']} requests, {demo['tokens']} "
-          f"tokens in {demo['seconds']:.3f} s ({demo['tok_per_s']:.1f} tok/s);"
-          f" samples {demo['outputs']}")
-    _line("serve", f"launches over prefill + serve_demo: {launches}")
-    if demo["requests"] != 12 or demo["tokens"] != 12 * 16:
-        raise AssertionError(f"serve_demo served {demo['requests']} requests, "
-                             f"{demo['tokens']} tokens")
+    launches = dict(prefill_launches)
+    if demo:
+        for mod in kernel_mods.values():
+            mod.LAUNCHES = 0
+        out = serve_demo(arch, smoke=False, device=dev)
+        launches = {n: prefill_launches[n] + m.LAUNCHES
+                    for n, m in kernel_mods.items()}
+        _line("serve", f"serve_demo: {out['requests']} requests, "
+              f"{out['tokens']} tokens in {out['seconds']:.3f} s "
+              f"({out['tok_per_s']:.1f} tok/s); samples {out['outputs']}")
+        if out["requests"] != 12 or out["tokens"] != 12 * 16:
+            raise AssertionError(f"serve_demo served {out['requests']} "
+                                 f"requests, {out['tokens']} tokens")
+    _line("serve", f"launches over prefill"
+          + (" + serve_demo" if demo else "") + f": {launches}")
     torch.cuda.empty_cache()
     return launches, noncausal
+
+
+def _scan_split(model, batch: int, seq: int, prefill_ms: float) -> None:
+    """Phases 35-36: one block's time loop apart from its products, at
+    the prefill's shape: host wall (synchronised, median of 3 after a warm
+    call) of the products before the loop, the loop, and the products
+    after it; the loop's kernels and device busy share under the
+    profiler; and the loops of all the blocks against the prefill."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import dot
+
+    cfg = model.cfg
+    blk = model.blocks[0]
+    gen = torch.Generator(device=model.device).manual_seed(3)
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen,
+                    device=model.device).to(cfg.activation_dtype())
+    with torch.no_grad():
+        if cfg.family == "hybrid":
+            ins = ssm._mamba_inputs(blk.ssm, x)
+            y = ssm._mamba_scan(blk.ssm, *ins)
+            parts = {
+                "products before": lambda: ssm._mamba_inputs(blk.ssm, x),
+                "time loop": lambda: ssm._mamba_scan(blk.ssm, *ins),
+                "products after": lambda: dot(y.to(x.dtype), blk.ssm.w_out),
+            }
+        else:
+            prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+            r, k, v, g, w = ssm._rwkv_time_inputs(blk.rwkv, x.float(),
+                                                  prev.float())
+            h = cfg.resolved_ssm_heads
+            parts = {
+                "products before": lambda: ssm._rwkv_time_inputs(
+                    blk.rwkv, x.float(), prev.float()),
+                "time loop": lambda: ssm._rwkv_scan(blk.rwkv, r, k, v, w, h),
+                "products after": lambda: (
+                    ssm.rwkv6_channel_mix(blk.rwkv, x, prev),
+                    dot(r.to(x.dtype), blk.rwkv.w_out)),
+            }
+        ms = {name: _wall_ms(fn) for name, fn in parts.items()}
+        wall, seen, dev_us = _device_profile(parts["time loop"])
+    busy_ms = sum(dev_us(e) for e in seen) / 1e3
+    n = len(model.blocks)
+    loops = n * ms["time loop"]
+    _line("scan", f"{model.cfg.name} one block at {batch} x {seq}: products"
+          f" before the loop {ms['products before']:.3f} ms, the loop "
+          f"{ms['time loop']:.3f} ms ({sum(e.count for e in seen)} kernels, "
+          f"device busy {busy_ms:.3f} ms, {100 * busy_ms / (wall * 1e3):.1f}%"
+          f" of the profiled wall), products after "
+          f"{ms['products after']:.3f} ms; {n} blocks' loops "
+          f"{loops:.1f} ms, {100 * loops / prefill_ms:.1f}% of the "
+          f"{prefill_ms:.1f} ms prefill")
 
 
 def _serving_kernel_times(dev, rng, errs, path_launches):
@@ -1076,9 +1245,10 @@ def _serving_kernel_times(dev, rng, errs, path_launches):
     from repro_torch.kernels.rmsnorm import kernel as rn_kernel
     from repro_torch.kernels.rmsnorm.ref import rms_norm_plain
 
+    gen = torch.Generator(device=dev).manual_seed(11)
+
     def normal(shape):
-        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
-                               device=dev)
+        return torch.randn(shape, generator=gen, device=dev)
 
     mods = {"flash_attention": fa_kernel, "decode_attention": da_kernel,
             "rmsnorm": rn_kernel}
@@ -1237,25 +1407,45 @@ def _serving_kernel_times(dev, rng, errs, path_launches):
 def _flash_path_times(normal, fa_kernel, flash_attention_plain):
     """Phase 11's flash attention at ``FLASH_PATH_SHAPES`` in float32 and
     bfloat16: the kernel, its plain version and SDPA (``is_causal`` as the
-    path has it, grouped heads through ``enable_gqa``) on the same inputs,
-    and the bound.  Returns one row a shape and type."""
+    path has it, a window as a boolean mask, grouped heads through
+    ``enable_gqa``) on the same inputs, and the bound, counted from the
+    (query, key) pairs the mask keeps.  At a head dim that is no tile of
+    the kernel's, the wrapper's zero-padded copies of q, k, v and the
+    slice of the output are timed apart (``pad_ms``).  Returns one row a
+    shape and type."""
     import torch
     import torch.nn.functional as F
 
     out = []
-    for (b, sq, skv, hq, hkv, d), causal in FLASH_PATH_SHAPES:
-        pairs = _attention_pairs(sq, skv, causal, 0) * b * hq
+    for (b, sq, skv, hq, hkv, d), causal, window in FLASH_PATH_SHAPES:
+        pairs = _attention_pairs(sq, skv, causal, window) * b * hq
         q32, k32, v32 = (normal((b, sq, hq, d)), normal((b, skv, hkv, d)),
                          normal((b, skv, hkv, d)))
+        mask = None
+        if window > 0:
+            qpos = torch.arange(sq, device=q32.device)[:, None]
+            kpos = torch.arange(skv, device=q32.device)[None, :]
+            mask = (kpos <= qpos) if causal else torch.ones_like(kpos > qpos)
+            mask &= kpos > qpos - window
+        tile = next(t for t in fa_kernel.HEAD_DIMS if t >= d)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (t.to(dtype) for t in (q32, k32, v32))
             ms = _gpu_ms(lambda: fa_kernel.flash_attention_cuda(
-                q, k, v, causal), iters=10)
-            plain_ms = _gpu_ms(lambda: flash_attention_plain(q, k, v, causal),
-                               iters=2)
+                q, k, v, causal, window), iters=10)
+            plain_ms = _gpu_ms(lambda: flash_attention_plain(
+                q, k, v, causal, window), iters=2)
             library_ms = _gpu_ms(lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=causal, enable_gqa=hq != hkv), iters=10)
+                attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=hq != hkv), iters=10)
+            pad_ms = None
+            if tile != d:
+                wide = torch.empty((b, sq, hq, tile), dtype=dtype,
+                                   device=q.device)
+                pad_ms = (_gpu_ms(lambda: [F.pad(t, (0, tile - d))
+                                           for t in (q, k, v)], iters=10)
+                          + _gpu_ms(lambda: wide[..., :d].contiguous(),
+                                    iters=10))
             n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
             n_ops = 4 * d * pairs
             f32 = dtype == torch.float32
@@ -1264,19 +1454,25 @@ def _flash_path_times(normal, fa_kernel, flash_attention_plain):
             ops_ms = n_ops / rate * 1e3
             row = dict(
                 shape=(f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} D={d} "
-                       f"{'causal' if causal else 'non-causal'}"),
+                       f"{'causal' if causal else 'non-causal'}"
+                       + (f" window={window}" if window else "")),
                 dtype=str(dtype)[6:], ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bound_rate=("float32 ops as 3 TF32 products at 495 TFLOP/s"
                             if f32 else "bfloat16 at 989 TFLOP/s"))
+            if pad_ms is not None:
+                row["pad_ms"] = pad_ms
             out.append(row)
+            pad = ("" if pad_ms is None else
+                   f"; of the kernel's time, the zero-padded copies to D "
+                   f"{tile} and the output's slice {pad_ms * 1e3:.3f} us")
             _line("kernel", f"flash_attention {row['shape']} {row['dtype']}: "
                   f"{ms * 1e3:.3f} us, plain {plain_ms * 1e3:.3f} us, SDPA "
                   f"{library_ms * 1e3:.3f} us, bound "
                   f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']} "
                   f"({row['bound_rate']}; {n_bytes} B, {n_ops} ops; "
-                  f"{100 * row['bound_ms'] / ms:.1f}% of the bound)")
+                  f"{100 * row['bound_ms'] / ms:.1f}% of the bound){pad}")
     return out
 
 
@@ -3453,6 +3649,119 @@ def _family_reference(dev) -> None:
                                 (AUDIO_ARCH, True, None, 2, 64)))
 
 
+def _smoke_decode_reference(dev, arch: str, fa_kernel) -> None:
+    """Phase 32's smoke check of one architecture, card against CPU,
+    float32, the same weights (drawn on the card): a prefill of
+    ``NEW_REF_PROMPT`` tokens through flash (the kernel's zero-padded
+    head dims on the card), then ``NEW_REF_STEPS`` decode steps of 2
+    slots, the prompt's and then greedy ones, slot 1 reset after step
+    ``NEW_REF_RESET``: logits within 2e-5 of the largest |logit| at every
+    step, greedy tokens identical, the reset slot's recurrent states
+    zeroed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(arch, smoke=True, dtype="float32", param_dtype="float32",
+                     attention_impl="kernel")
+    on_card = build_model(cfg, device=dev, seed=0)
+    on_cpu = Model(cfg, "cpu")
+    on_cpu.load_state_dict(on_card.state_dict())
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, cfg.vocab_size, (2, NEW_REF_STEPS)).astype(np.int32)
+    prompt = {"tokens": toks[:, :NEW_REF_PROMPT]}
+    before = fa_kernel.LAUNCHES
+    with torch.no_grad():
+        want, _ = on_cpu.forward(prompt)
+        got, _ = on_card.forward(prompt)
+    launched = fa_kernel.LAUNCHES - before
+    scale = float(want.abs().max())
+    pre_err = float((got.cpu() - want).abs().max())
+    if not pre_err <= 2e-5 * scale:
+        raise AssertionError(f"{arch} smoke prefill: card vs CPU {pre_err:.3e}"
+                             f" past 2e-5 x {scale:.4f}")
+    sides = []
+    for model in (on_cpu, on_card):
+        engine = ServeEngine(model, 64, 2)
+        sides.append([engine, model.init_cache(2, 64), model.device])
+    worst, fed = 0.0, ([], [])
+    nxt = [None, None]
+    for t in range(NEW_REF_STEPS):
+        outs = []
+        for i, side in enumerate(sides):
+            engine, cache, where = side
+            tok = (toks[:, t:t + 1] if t < NEW_REF_PROMPT
+                   else nxt[i].numpy().astype(np.int32)[:, None])
+            fed[i].append(tok[:, 0].tolist())
+            logits, side[1] = engine.serve_step(
+                side[1], torch.as_tensor(tok, device=where))
+            logits = logits[:, -1].cpu()
+            nxt[i] = logits.argmax(-1)
+            outs.append(logits)
+            if t == NEW_REF_RESET:
+                side[1] = engine.reset_slots(side[1], np.array([False, True]))
+        scale = float(outs[0].abs().max())
+        err = float((outs[1] - outs[0]).abs().max())
+        worst = max(worst, err / scale)
+        if not err <= 2e-5 * scale:
+            raise AssertionError(f"{arch} smoke decode step {t}: card vs CPU "
+                                 f"{err:.3e} past 2e-5 x {scale:.4f}")
+        if not torch.equal(nxt[0], nxt[1]):
+            raise AssertionError(f"{arch} smoke decode step {t}: greedy "
+                                 f"tokens differ")
+    card = sides[1][1]
+    zeroed = [k for k in ("ssm", "rwkv") if k in card]
+    ring = card["k"].shape[2] if "k" in card else 0
+    _line("reference", f"{arch} smoke config ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, head dim {cfg.resolved_head_dim}): prefill 2 x "
+          f"{NEW_REF_PROMPT} within {pre_err / scale:.3e} of the largest "
+          f"|logit| (flash launches on the card {launched}); "
+          f"{NEW_REF_STEPS} decode steps "
+          + (f"through a {ring}-slot ring " if ring and cfg.sliding_window
+             else "")
+          + f"(greedy from step {NEW_REF_PROMPT}, slot 1 reset after step "
+          f"{NEW_REF_RESET}{', zeroing its ' + ' and '.join(zeroed) if zeroed else ''}"
+          f") within {worst:.3e} (limit 2e-5); greedy tokens identical; "
+          f"positions {card['pos'].tolist()}")
+    if fed[0] != fed[1] or card["pos"].tolist() != [
+            NEW_REF_STEPS, NEW_REF_STEPS - NEW_REF_RESET - 1]:
+        raise AssertionError(f"{arch} smoke decode: the sides fed other "
+                             "tokens or positions")
+
+
+def _new_family_reference(dev, fa_kernel) -> None:
+    """Phase 32: the last five architectures card against CPU, float32:
+    each smoke config through :func:`_smoke_decode_reference`; gemma-7b,
+    starcoder2-3b, hymba-1.5b and rwkv6-3b at full width and depth 2
+    through phase 9's check (weights drawn on the card, copied to the
+    CPU); then phase 25's three training steps for the hybrid and ssm
+    smoke configs."""
+    import torch
+
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.models.transformer import Model
+
+    for arch in NEW_ARCHS:
+        _smoke_decode_reference(dev, arch, fa_kernel)
+    for arch in (GEMMA_ARCH, STARCODER_ARCH, HYMBA_ARCH, RWKV_ARCH):
+        cfg = get_config(arch, dtype="float32", param_dtype="float32",
+                         attention_impl="kernel", n_layers=2)
+        on_card = build_model(cfg, device=dev, seed=0)
+        on_cpu = Model(cfg, "cpu")
+        on_cpu.load_state_dict(on_card.state_dict())
+        n_params = sum(p.numel() for p in on_cpu.parameters())
+        _line("reference", f"{arch} full width, depth 2: {n_params} "
+              "parameters on each side")
+        _serving_reference(dev, arch, twins=(on_cpu, on_card))
+        del on_card, on_cpu
+        torch.cuda.empty_cache()
+    _train_reference(dev, runs=((HYMBA_ARCH, True, None, 2, 64),
+                                (RWKV_ARCH, True, None, 2, 64)))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3699,21 +4008,34 @@ def main() -> int:
                              times["unfused"][2], times["unfused"][3]))),
     }]
 
+    def stamp(phase: str) -> None:
+        _line("time", f"phase {phase} ends at "
+              f"{time.perf_counter() - t_start:.1f} s")
+
+    stamp("7")
     # 8-11. The serving path.
     serve_errs = _serving_kernels_check(dev, rng)
+    stamp("8")
     _serving_reference(dev)
+    stamp("9")
     path_launches, _ = _serving_main_path(dev, kernel_mods)
+    stamp("10")
     kernels += _serving_kernel_times(dev, rng, serve_errs, path_launches)
+    stamp("11")
 
     # 12-14. The open system.
     _open_reference(dev, model)
+    stamp("12")
     open_launches, open_runs = _open_main_path(dev, model, kernel_mods)
+    stamp("13")
     flag_ms, int_ms = _pair_score_flag_times(dev, rng, model, ps_kernel)
 
     # 15-18. The lane-batched grid and the seed-batched race.
     lanes_entry = _pair_score_lanes(dev, rng, model, ps_kernel)
     _open_grid_reference(dev, model)
+    stamp("16")
     grid_launches, grid_runs = _open_grid_main_path(dev, model, kernel_mods)
+    stamp("17")
     batched_launches = _batched_race(dev, model, kernel_mods, res, per_q)
     t_rings = time.perf_counter()
 
@@ -3773,6 +4095,25 @@ def main() -> int:
     fam_s = time.perf_counter() - t_fam
     fam_phase_s = (t_30 - t_fam, t_31 - t_30, t_fam + fam_s - t_31)
 
+    # 32-37. The last five architectures: gemma-7b (flash at D 256),
+    # starcoder2-3b (a window in the prefill, a ring in decode), hymba-1.5b
+    # and rwkv6-3b (the time loops), kimi-k2-1t-a32b at depth 1 (D 112).
+    t_new = time.perf_counter()
+    _new_family_reference(dev, fa_kernel)
+    new_phase_s = [time.perf_counter() - t_new]
+    new_launches = {}
+    for arch in (GEMMA_ARCH, STARCODER_ARCH, HYMBA_ARCH, RWKV_ARCH,
+                 KIMI_ARCH):
+        t0 = time.perf_counter()
+        spec = dict(NEW_PATHS[arch])
+        cfg = get_config(arch, **spec.get("overrides", {}))
+        flash = 0 if cfg.family == "ssm" else cfg.n_layers
+        new_launches[arch], _ = _serving_main_path(
+            dev, kernel_mods, arch, "bfloat16", seq=spec.pop("seq"),
+            prefill_b=spec.pop("batch"), expect=(flash, 0), **spec)
+        new_phase_s.append(time.perf_counter() - t0)
+    new_s = time.perf_counter() - t_new
+
     new_paths = {"race_rings": ring_launches, "open_rings": open_ring_launches,
                  "grid_rings": grid_ring_launches,
                  "checkpointed": ckpt_launches,
@@ -3780,7 +4121,9 @@ def main() -> int:
                  "host_race": host_race_launches,
                  "host_open": host_open_launches,
                  "train": train_launches, "moe_serve": moe_serve_launches,
-                 "vlm_serve": vlm_launches, "audio_serve": audio_launches}
+                 "vlm_serve": vlm_launches, "audio_serve": audio_launches,
+                 **{f"{arch.split('-')[0]}_serve": v
+                    for arch, v in new_launches.items()}}
     kernels[0]["path_launches"] = {
         "race": launches["pair_score"], "open": open_launches["pair_score"],
         "grid": grid_launches["pair_score"],
@@ -3802,6 +4145,7 @@ def main() -> int:
     flash["noncausal_launches"] = {"audio_serve": audio_noncausal}
     all_s = time.perf_counter() - t_start
     total_s = t_fam - t_start
+    before_new = t_new - t_start
     before_s = total_s - rings_s - host_s - train_s
     _line("done", f"{all_s:.1f} s in all; phases 19-21 {rings_s:.1f} s, "
           f"{100 * rings_s / before_s:.1f}% added to phases "
@@ -3818,7 +4162,11 @@ def main() -> int:
           f"{train_phase_s[3]:.1f} s); phases 29-31 {fam_s:.1f} s, "
           f"{100 * fam_s / total_s:.1f}% added to phases 1-28's "
           f"{total_s:.1f} s (29: {fam_phase_s[0]:.1f} s, 30: "
-          f"{fam_phase_s[1]:.1f} s, 31: {fam_phase_s[2]:.1f} s)")
+          f"{fam_phase_s[1]:.1f} s, 31: {fam_phase_s[2]:.1f} s); phases "
+          f"32-37 {new_s:.1f} s, {100 * new_s / before_new:.1f}% added to "
+          f"phases 1-31's {before_new:.1f} s ("
+          + ", ".join(f"{32 + i}: {x:.1f} s" for i, x in
+                      enumerate(new_phase_s)) + ")")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

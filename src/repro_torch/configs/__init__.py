@@ -1,22 +1,32 @@
-"""Architecture configs ported so far (one module per architecture).
+"""Architecture configs (one module per architecture): the reference's ten.
 
-The dense configs qwen1.5-0.5b and llama3.2-3b (the dense one with
-grouped KV heads), the mixture-of-experts qwen2-moe-a2.7b, the vision
-model llama-3.2-vision-11b (gated image cross-attention every 5th layer)
-and the encoder-decoder whisper-large-v3.  The reference's other five
-architectures and its ``shapes.py`` are still to be ported.
+The dense configs qwen1.5-0.5b, llama3.2-3b (grouped KV heads),
+starcoder2-3b (a 4096-token sliding window, LayerNorm, QKV biases) and
+gemma-7b (head dim 256, GeGLU, tied and scaled embeddings); the
+mixture-of-experts qwen2-moe-a2.7b and kimi-k2-1t-a32b (384 experts, top
+8, head dim 112); the vision model llama-3.2-vision-11b (gated image
+cross-attention every 5th layer); the encoder-decoder whisper-large-v3;
+the hybrid hymba-1.5b (attention and a Mamba mixer in parallel, a
+2048-token window); and the attention-free rwkv6-3b.  The reference's
+``shapes.py`` is still to be ported.
 """
 
-from repro_torch.configs import (llama3_2_3b, llama_3_2_vision_11b,
-                                 qwen1_5_0_5b, qwen2_moe_a2_7b,
-                                 whisper_large_v3)
+from repro_torch.configs import (gemma_7b, hymba_1_5b, kimi_k2_1t_a32b,
+                                 llama3_2_3b, llama_3_2_vision_11b,
+                                 qwen1_5_0_5b, qwen2_moe_a2_7b, rwkv6_3b,
+                                 starcoder2_3b, whisper_large_v3)
 
 ARCH_MODULES = {
-    "llama-3.2-vision-11b": llama_3_2_vision_11b,
     "llama3.2-3b": llama3_2_3b,
     "qwen1.5-0.5b": qwen1_5_0_5b,
+    "starcoder2-3b": starcoder2_3b,
+    "gemma-7b": gemma_7b,
+    "kimi-k2-1t-a32b": kimi_k2_1t_a32b,
     "qwen2-moe-a2.7b": qwen2_moe_a2_7b,
+    "llama-3.2-vision-11b": llama_3_2_vision_11b,
     "whisper-large-v3": whisper_large_v3,
+    "hymba-1.5b": hymba_1_5b,
+    "rwkv6-3b": rwkv6_3b,
 }
 
 CONFIGS = {name: mod.CONFIG for name, mod in ARCH_MODULES.items()}

@@ -4,7 +4,10 @@ The source is ``csrc/flash_attention.cu`` (plain C entries:
 ``flash_attention_scratch`` sizes the scratch its float32 pre-pass
 writes, ``flash_attention_launch`` launches the pre-pass and the
 attention kernel), built and loaded by :mod:`repro_torch.kernels._build` at first
-use.
+use.  The kernel has tiles for head dims 64, 128 and 256; any other head
+dim up to 256 is zero-padded to the next tile (zero columns add nothing to
+the scores and give zero output columns) and the output sliced back, with
+the softmax scale taken from the true head dim.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels._build import FLOAT, INT, PTR, CudaLibrary, check_inputs
 
@@ -21,6 +25,7 @@ LIB = CudaLibrary(SOURCE, {
                                INT, INT, INT, INT, FLOAT, INT, PTR),
     "flash_attention_scratch": (INT, INT, INT, INT, INT),
 })
+#: The kernel's head-dim tiles.
 HEAD_DIMS = (64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -35,7 +40,8 @@ NONCAUSAL_LAUNCHES = 0
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: int = 0) -> torch.Tensor:
     """Launch the kernel: q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), all CUDA,
-    contiguous, one of float32/bfloat16 -> (B, Sq, Hq, D) in q's dtype.
+    contiguous, one of float32/bfloat16, D at most 256 -> (B, Sq, Hq, D) in
+    q's dtype.  A D that is not a tile's goes through zero-padded copies.
     Launches on the current stream and does not synchronise."""
     global LAUNCHES, NONCAUSAL_LAUNCHES
     check_inputs("flash_attention_cuda", (q.dtype,), q=q, k=k, v=v)
@@ -50,21 +56,25 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
         raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not match")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {d} not in {HEAD_DIMS}")
+    if not 0 < d <= HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention_cuda: head dim {d} not in 1.."
+                         f"{HEAD_DIMS[-1]}")
+    tile = next(t for t in HEAD_DIMS if t >= d)
+    if tile != d:
+        q, k, v = (F.pad(t, (0, tile - d)) for t in (q, k, v))
     out = torch.empty_like(q)
     # For float32 the kernel's pre-pass writes K and V, split into TF32
     # hi/lo planes in the layout its tensor-core products read, into this
     # scratch; bfloat16 needs none.
-    units = LIB.call("flash_attention_scratch", b, skv, hkv, d,
+    units = LIB.call("flash_attention_scratch", b, skv, hkv, tile,
                      DTYPES[q.dtype])
     scratch = torch.empty(16 * max(units, 1), dtype=torch.float32,
                           device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     LIB.launch("flash_attention_launch", q.data_ptr(), k.data_ptr(),
                v.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, sq, skv,
-               hq, hkv, d, int(bool(causal)), int(window), d ** -0.5,
+               hq, hkv, tile, int(bool(causal)), int(window), d ** -0.5,
                DTYPES[q.dtype], stream)
     LAUNCHES += 1
     NONCAUSAL_LAUNCHES += int(not causal)
-    return out
+    return out if tile == d else out[..., :d].contiguous()

@@ -77,6 +77,11 @@ class ModelConfig:
     def resolved_moe_d_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
 
+    @property
+    def resolved_ssm_heads(self) -> int:
+        """RWKV6's heads: ``ssm_heads``, or one per 64 model dims."""
+        return self.ssm_heads or max(self.d_model // 64, 1)
+
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 

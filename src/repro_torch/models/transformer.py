@@ -1,4 +1,4 @@
-"""Model assembly: the dense, moe, vlm and audio families.
+"""Model assembly: the dense, moe, vlm, audio, hybrid and ssm families.
 
 One :class:`Model` (an ``nn.Module``) per architecture, built from a
 :class:`ModelConfig`:
@@ -24,15 +24,22 @@ Families:
             precomputed frame embeddings (``batch["audio_frames"]``), and
             decoder blocks of self-attention, gated cross-attention to the
             encoder's output, MLP
+    hybrid  hymba: attention and a Mamba mixer (``models/ssm.py``) run in
+            parallel on the same normalised input, their outputs averaged
+    ssm     rwkv6: attention-free, a time-mix then a channel-mix
 
 A cross block adds ``tanh(gate)`` times its cross-attention, ``gate`` a
 float32 scalar that starts at 0.  ``cfg.remat`` recomputes each block (a
 vlm group, a decoder block with its cross block) in the backward pass:
 ``"full"`` keeps nothing, ``"dots"`` keeps the products' outputs,
-``"none"`` keeps everything; all three give the same numbers.  The
-reference's hybrid and ssm families and decoding with a sliding window
-through a ring-buffer cache are not ported yet (ROADMAP.md, section 1,
-queue (c)); they raise ``NotImplementedError``.
+``"none"`` keeps everything; all three give the same numbers.
+
+A sliding window that fits the decode cache makes the cache a ring buffer
+of ``window`` slots (:func:`_ring_decode_attention`, dense, moe and
+hybrid); the vlm and audio decoders attend through ``decode_attention``
+whatever the window, as the reference's.  Mamba and RWKV states are
+float32 and O(1) in the context length.  A decode step writes K, V and
+the recurrent states into the cache's tensors in place.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -48,11 +56,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 
 F32 = torch.float32
-_NOT_PORTED = "is not ported yet (ROADMAP.md, section 1, queue (c))"
-FAMILIES = ("dense", "moe", "vlm", "audio")
+FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 #: The parameter groups the reference stacks on a leading layer axis.
 STACKED = ("blocks", "cross_blocks", "dec_cross", "encoder")
 
@@ -85,23 +93,33 @@ def reference_ndim(name: str, p: torch.Tensor) -> int:
 
 
 class Block(nn.Module):
+    """Norms ``ln1``, ``ln2``; for ssm an ``rwkv`` mixer alone, else
+    ``attn``, for hybrid a Mamba ``ssm`` beside it, and ``moe`` or
+    ``mlp``."""
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = layers.Norm(cfg.d_model, device)
         self.ln2 = layers.Norm(cfg.d_model, device)
+        self.attn = self.ssm = self.rwkv = self.moe = self.mlp = None
+        if cfg.family == "ssm":
+            self.rwkv = ssm_mod.RWKV6(cfg, device)
+            return
         self.attn = attn_mod.Attention(cfg, device=device)
+        if cfg.family == "hybrid":
+            self.ssm = ssm_mod.Mamba(cfg, device=device)
         if cfg.family == "moe":
             self.moe = moe_mod.MoE(cfg, device)
-            self.mlp = None
         else:
             self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_activation,
                                   cfg.weight_dtype(), device)
-            self.moe = None
 
     def reset_parameters(self, generator) -> None:
-        for m in (self.ln1, self.ln2, self.attn, self.moe or self.mlp):
-            m.reset_parameters(generator)
+        for m in (self.ln1, self.ln2, self.attn, self.ssm, self.rwkv,
+                  self.moe, self.mlp):
+            if m is not None:
+                m.reset_parameters(generator)
 
     def ffn(self, h):
         """The feed-forward half on the normalised stream: (y, aux)."""
@@ -113,8 +131,18 @@ class Block(nn.Module):
         """(B, S, d) -> ((B, S, d), aux) over the full sequence."""
         cfg = self.cfg
         a = layers.apply_norm(cfg.norm, self.ln1, x)
-        x = x + attn_mod.attention(self.attn, a, cfg, positions=positions,
-                                   causal=causal)
+        if self.rwkv is not None:
+            x = x + ssm_mod.rwkv6_time_mix(self.rwkv, a, cfg)
+            b = layers.apply_norm(cfg.norm, self.ln2, x)
+            b_prev = F.pad(b, (0, 0, 1, 0))[:, :-1]
+            x = x + ssm_mod.rwkv6_channel_mix(self.rwkv, b, b_prev)
+            return x, torch.zeros((), dtype=F32, device=x.device)
+        att = attn_mod.attention(self.attn, a, cfg, positions=positions,
+                                 causal=causal)
+        if self.ssm is not None:
+            x = x + 0.5 * (att + ssm_mod.mamba_forward(self.ssm, a, cfg))
+        else:
+            x = x + att
         y, aux = self.ffn(layers.apply_norm(cfg.norm, self.ln2, x))
         return x + y, aux
 
@@ -155,7 +183,7 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(f"model family {cfg.family!r} {_NOT_PORTED}")
+            raise ValueError(f"model family {cfg.family!r} not in {FAMILIES}")
         self.cfg = cfg
         wdt = cfg.weight_dtype()
         self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, wdt, device)
@@ -271,21 +299,32 @@ class Model(nn.Module):
     def init_cache(self, batch: int, max_len: int,
                    extras: Optional[Dict] = None) -> Dict:
         """Decode cache: per-slot positions and the KV caches of every self
-        block, (L, B, cache_len, Hkv, hd) in the activation dtype; for vlm
-        ``image_embeds`` (B, n_image_tokens, d), for audio the encoder's
-        output ``enc`` (B, encoder_seq, d), zeros unless ``extras`` gives
-        them (``extras`` replaces any entry)."""
+        block, (L, B, cache_len, Hkv, hd) in the activation dtype (a ring
+        of ``cache_len`` slots when the window fits); for hybrid the Mamba
+        states ``ssm`` (L, B, d_inner, N); for ssm no KV cache but the
+        RWKV states ``rwkv`` = {``wkv`` (L, B, H, hd, hd), ``x_tm``,
+        ``x_cm`` (L, B, d)}, all float32 zeros; for vlm ``image_embeds``
+        (B, n_image_tokens, d), for audio the encoder's output ``enc`` (B,
+        encoder_seq, d), zeros unless ``extras`` gives them (``extras``
+        replaces any entry)."""
         cfg = self.cfg
         dev = self.device
         dt = cfg.activation_dtype()
-        cl = self.cache_len(max_len)
-        shape = (len(self.blocks), batch, cl, cfg.n_kv_heads,
+        n = len(self.blocks)
+        cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+        if cfg.family == "ssm":
+            cache["rwkv"] = {
+                k: torch.zeros((n,) + s, dtype=F32, device=dev)
+                for k, s in ssm_mod.rwkv6_state_shapes(cfg, batch).items()}
+            return cache
+        shape = (n, batch, self.cache_len(max_len), cfg.n_kv_heads,
                  cfg.resolved_head_dim)
-        cache = {
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev),
-        }
+        cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+        if cfg.family == "hybrid":
+            cache["ssm"] = torch.zeros(
+                (n,) + ssm_mod.mamba_state_shape(cfg, batch), dtype=F32,
+                device=dev)
         if cfg.family == "vlm":
             cache["image_embeds"] = torch.zeros(
                 (batch, cfg.n_image_tokens, cfg.d_model), dtype=dt, device=dev)
@@ -300,13 +339,16 @@ class Model(nn.Module):
     def decode_step(self, cache: Dict, tokens) -> Tuple:
         """tokens: (B, 1) -> (logits (B, 1, V), cache).
 
-        The returned cache holds the same K/V tensors, written in place at
-        each slot's position, and the positions advanced by one.  Cross
-        blocks attend ``cache["image_embeds"]`` (vlm) or ``cache["enc"]``
-        (audio)."""
+        The returned cache holds the same K/V and state tensors, written in
+        place (K/V at each slot's position, or its ring slot), and the
+        positions advanced by one.  Cross blocks attend
+        ``cache["image_embeds"]`` (vlm) or ``cache["enc"]`` (audio)."""
         cfg = self.cfg
         x = self._embed(tokens)
         pos = cache["pos"]
+        if cfg.family == "ssm":
+            x = self._decode_rwkv(cache["rwkv"], x)
+            return self._logits(x), dict(cache, pos=pos + 1)
         k, v = cache["k"], cache["v"]
         if cfg.family == "vlm":
             per_group = cfg.cross_attn_every - 1
@@ -319,16 +361,26 @@ class Model(nn.Module):
                 x = self._decode_block(blk, x, k[i], v[i], pos)
                 x = cross(x, cache["enc"])
         else:
+            ssm = cache.get("ssm")
             for i, blk in enumerate(self.blocks):
-                x = self._decode_block(blk, x, k[i], v[i], pos)
+                x = self._decode_block(blk, x, k[i], v[i], pos,
+                                       None if ssm is None else ssm[i])
         cache = dict(cache, pos=pos + 1)
         return self._logits(x), cache
 
-    def _decode_block(self, blk, x, k_c, v_c, pos):
-        """One self block on one token."""
+    def _decode_block(self, blk, x, k_c, v_c, pos, ssm_state=None):
+        """One self block on one token; a hybrid block's Mamba state
+        ``ssm_state`` (B, d_inner, N) is written in place."""
         cfg = self.cfg
         a = layers.apply_norm(cfg.norm, blk.ln1, x)
-        x = x + self._decode_attn(blk.attn, a, k_c, v_c, pos)
+        att = self._decode_attn(blk.attn, a, k_c, v_c, pos)
+        if blk.ssm is not None:
+            ssm_out, new_state = ssm_mod.mamba_decode(blk.ssm, a, ssm_state,
+                                                      cfg)
+            ssm_state.copy_(new_state)
+            x = x + 0.5 * (att + ssm_out)
+        else:
+            x = x + att
         y, _aux = blk.ffn(layers.apply_norm(cfg.norm, blk.ln2, x))
         return x + y
 
@@ -340,7 +392,61 @@ class Model(nn.Module):
         cfg = self.cfg
         if (cfg.family not in ("vlm", "audio") and cfg.sliding_window > 0
                 and cfg.sliding_window <= k_c.shape[1]):
-            raise NotImplementedError(
-                f"sliding-window decoding through a ring buffer {_NOT_PORTED}")
+            return _ring_decode_attention(p_attn, a, k_c, v_c, pos, cfg)
         att, _, _ = attn_mod.decode_attention(p_attn, a, k_c, v_c, pos, cfg)
         return att
+
+    def _decode_rwkv(self, states: Dict, x):
+        """The ssm family's blocks on one token, x (B, 1, d); each layer's
+        ``wkv``, ``x_tm`` and ``x_cm`` are written in place."""
+        cfg = self.cfg
+        for i, blk in enumerate(self.blocks):
+            a = layers.apply_norm(cfg.norm, blk.ln1, x[:, 0])
+            y, new_t = ssm_mod.rwkv6_time_decode(
+                blk.rwkv, a, {"wkv": states["wkv"][i],
+                              "x_tm": states["x_tm"][i]}, cfg)
+            x = x + y[:, None, :]
+            b = layers.apply_norm(cfg.norm, blk.ln2, x[:, 0])
+            y2, new_cm = ssm_mod.rwkv6_channel_decode(blk.rwkv, b,
+                                                      states["x_cm"][i])
+            x = x + y2[:, None, :]
+            states["wkv"][i].copy_(new_t["wkv"])
+            states["x_tm"][i].copy_(new_t["x_tm"])
+            states["x_cm"][i].copy_(new_cm)
+        return x
+
+
+def _ring_decode_attention(p_attn, a, k_c, v_c, pos, cfg: ModelConfig):
+    """Sliding-window decode against a ring-buffer KV cache.
+
+    k_c/v_c: (B, cache_len, Hkv, hd), each slot's last ``cache_len``
+    tokens at buffer index ``position % cache_len``.  RoPE is applied at
+    absolute positions before the write, so the ring's rotation does not
+    disturb relative phases.  A buffer index counts once written: all of
+    them once ``pos + 1 >= cache_len``, else those ``<= pos %
+    cache_len``.  The new key and value are written in place; returns y
+    (B, 1, d)."""
+    b = a.shape[0]
+    hd = cfg.resolved_head_dim
+    cl = k_c.shape[1]
+    pos = torch.as_tensor(pos, device=a.device).reshape(b).long()
+    write_idx = pos % max(cl, 1)
+    q, k, v = attn_mod._project_qkv(p_attn, a, cfg)
+    cos, sin = layers.rope_angles(pos[:, None], hd, cfg.rope_theta)
+    q = layers.apply_rope(q, cos, sin)
+    k = layers.apply_rope(k, cos, sin)
+    bidx = torch.arange(b, device=a.device)
+    k_c[bidx, write_idx] = k[:, 0].to(k_c.dtype)
+    v_c[bidx, write_idx] = v[:, 0].to(v_c.dtype)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    qg = q.reshape(b, hkv, hq // hkv, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qg.float(),
+                          k_c.float()) * (hd ** -0.5)
+    slot = torch.arange(cl, device=a.device)[None, :]
+    written = (pos + 1 >= cl)[:, None] | (slot <= write_idx[:, None])
+    scores = scores.masked_fill(~written[:, None, None, :], attn_mod.NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", probs.to(v_c.dtype).float(),
+                       v_c.float())
+    out = out.reshape(b, 1, hq, hd).to(a.dtype)
+    return attn_mod._out_proj(p_attn, out, a.dtype)

@@ -58,13 +58,24 @@ class ServeEngine:
 
     # ---------------------------------------------- continuous batching
     def reset_slots(self, cache, slot_mask: np.ndarray):
-        """Reset the position of every True slot to 0.  Stale KV entries
-        need no clearing: the per-slot position mask hides them.  A slot's
+        """Reset every True slot: its position to 0 and its recurrent
+        states (``ssm``, ``rwkv``) to zeros, in new tensors.  Stale KV
+        entries need no clearing: the per-slot position mask (or, in a
+        ring, the written-slot mask) hides them.  A slot's
         ``image_embeds`` or ``enc`` stay as they are, as the reference's."""
         reset = torch.as_tensor(np.asarray(slot_mask, bool), device=self.device)
         cache = dict(cache)
         cache["pos"] = torch.where(reset, torch.zeros_like(cache["pos"]),
                                    cache["pos"])
+        keep = (~reset).float()
+
+        def zero_state(x):             # (L, B, ...): the batch is axis 1
+            return x * keep.reshape((1, -1) + (1,) * (x.dim() - 2))
+
+        if "ssm" in cache:
+            cache["ssm"] = zero_state(cache["ssm"])
+        if "rwkv" in cache:
+            cache["rwkv"] = {k: zero_state(v) for k, v in cache["rwkv"].items()}
         return cache
 
     def generate(

@@ -51,9 +51,10 @@ def _pair(arch, impl="xla", seed=0):
 
 # -------------------------------------------------------------- configs
 def test_configs_match_the_reference():
-    assert list_archs() == ["llama-3.2-vision-11b", "llama3.2-3b",
-                            "qwen1.5-0.5b", "qwen2-moe-a2.7b",
-                            "whisper-large-v3"]
+    assert list_archs() == ["gemma-7b", "hymba-1.5b", "kimi-k2-1t-a32b",
+                            "llama-3.2-vision-11b", "llama3.2-3b",
+                            "qwen1.5-0.5b", "qwen2-moe-a2.7b", "rwkv6-3b",
+                            "starcoder2-3b", "whisper-large-v3"]
     for arch in ARCHS:
         for smoke in (False, True):
             ours = dataclasses.asdict(get_config(arch, smoke=smoke))
@@ -254,14 +255,22 @@ def test_decode_write_past_the_cache_is_dropped():
 
 
 def test_unported_families_and_ring_decode_raise():
+    """Only a family the reference does not have is refused: hybrid and
+    ssm build, and a window that fits the cache decodes through a ring of
+    ``window`` slots (``tests/test_torch_families.py`` holds both to the
+    reference)."""
     cfg = get_config("qwen1.5-0.5b", smoke=True)
+    with pytest.raises(ValueError, match="family"):
+        Model(cfg.scaled(family="retnet"), torch.device("meta"))
     for family in ("hybrid", "ssm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(cfg.scaled(family=family), torch.device("meta"))
+        Model(cfg.scaled(family=family), torch.device("meta"))
     model = build_model(cfg.scaled(sliding_window=4), device="cpu")
     cache = model.init_cache(1, 16)
-    with pytest.raises(NotImplementedError, match="ring buffer"):
-        model.decode_step(cache, torch.zeros((1, 1), dtype=torch.int32))
+    assert cache["k"].shape[2] == 4
+    for t in range(6):
+        logits, cache = model.decode_step(
+            cache, torch.full((1, 1), t, dtype=torch.int32))
+    assert bool(torch.isfinite(logits).all()) and cache["pos"].tolist() == [6]
 
 
 def test_build_model_is_seeded():
