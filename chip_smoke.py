@@ -237,7 +237,34 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    float32 copy of the layer would be 78 GB): each prints a summary
    (prefill wall and tokens/s, decode-step wall and kernels a step,
    device busy, flash launches a prefill, peak memory), hymba and rwkv6
-   also one block's time loop apart from its products (``[scan]``).
+   also one block's time loop apart from its products (``[scan]``);
+38. the roofline's constants beside the card: ``nvidia-smi`` name and
+   power limit, a bfloat16 8192^3 ``torch.matmul``'s TFLOP/s beside
+   ``launch.roofline.PEAK_FLOPS``, a 4 GiB device-to-device copy's GB/s
+   (bytes read plus bytes written) beside ``HBM_BW``, the card's
+   ``total_memory`` beside ``HBM_BYTES`` (``[roofline]``);
+39. the dry-run on the host (``launch.dryrun.run_cells``, the cells in
+   ``DRYRUN_JOBS`` spawned processes at once, each over its own fake
+   process group of 256 or 512 ranks, the models at full size on
+   ``meta``): every cell of the 16x16 mesh but the four loop-bound ones
+   (``launch.dryrun.LOOP_BOUND``: hymba-1.5b's and rwkv6-3b's
+   ``train_4k`` and ``prefill_32k``, whose time loops trace a step at a
+   time; the
+   ``--all`` sweep of ``experiments/dryrun_sweep/run.py`` runs them),
+   and the 2x16x16 mesh for ``DRYRUN_MULTI_POD`` (qwen1.5-0.5b's and
+   kimi-k2's ``train_4k``); each cell's terms,
+   dominant term, useful-FLOPs ratio, GiB per device, collective counts
+   and wall (``[dryrun]``); every cell must complete with finite terms,
+   a multi-pod cell may hold no more bytes a device than on 16x16, and
+   no process group may be left;
+40. co-location on the card against the CPU: ``core.colocation.
+   plan_colocation`` of phase 39's records (an even count) and of the
+   reference's eight stand-in jobs (``STAND_IN_JOBS``) with phase 4's
+   ``SYNPA4_R-FEBE``, with every kernel's launch count set to 0 just
+   before the card's plans and read just after (``pair_score`` once a
+   plan): the card's pairs identical to the CPU's and ``predicted_cost``
+   within 1e-5 relative; ``evaluate_placement`` of SYNPA's pairs beside a
+   seeded random pairing's (``[coloc]``).
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -345,6 +372,25 @@ NEW_PATHS = {
 #: steps (the prompt's, then greedy ones; the 16-slot rings wrap three
 #: times) and the step after which slot 1 is reset.
 NEW_REF_PROMPT, NEW_REF_STEPS, NEW_REF_RESET = 40, 56, 24
+#: The dry-run (phase 39): the multi-pod cells and the processes that
+#: trace cells at once (``launch.dryrun.LOOP_BOUND``'s cells are left to
+#: the sweep: their time loops trace one step at a time, minutes each).
+DRYRUN_MULTI_POD = [("qwen1.5-0.5b", "train_4k"),
+                    ("kimi-k2-1t-a32b", "train_4k")]
+DRYRUN_JOBS = 6
+#: The reference's stand-in jobs for co-location (phase 40;
+#: examples/colocation_demo.py): name, compute_s, memory_s, collective_s,
+#: useful_flops_ratio.
+STAND_IN_JOBS = [
+    ("gemma-7b/train_4k", 0.9, 0.5, 0.3, 0.8),
+    ("kimi-k2/train_4k", 0.3, 0.9, 1.2, 0.5),
+    ("llama3.2-3b/decode_32k", 0.05, 0.9, 0.1, 0.9),
+    ("rwkv6-3b/long_500k", 0.1, 0.7, 0.05, 0.9),
+    ("starcoder2-3b/prefill_32k", 0.8, 0.4, 0.2, 0.7),
+    ("qwen2-moe/train_4k", 0.4, 0.6, 0.9, 0.6),
+    ("whisper-v3/prefill_32k", 0.7, 0.5, 0.2, 0.75),
+    ("hymba-1.5b/decode_32k", 0.1, 0.8, 0.1, 0.85),
+]
 #: Flash attention at the main paths' shapes: ((B, Sq, Skv, Hq, Hkv, D),
 #: causal, window): llama-3.2-vision-11b's self blocks, the whisper
 #: encoder's bidirectional attention over 1500 frames, gemma-7b's D 256,
@@ -3762,6 +3808,134 @@ def _new_family_reference(dev, fa_kernel) -> None:
                                 (RWKV_ARCH, True, None, 2, 64)))
 
 
+def _roofline_constants(dev) -> None:
+    """Phase 38: the dry-run's H100 constants beside this card."""
+    import torch
+    from repro_torch.launch import roofline as rl
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    n = 8192
+    g = torch.Generator(device=dev).manual_seed(38)
+    a = torch.randn(n, n, dtype=torch.bfloat16, device=dev, generator=g)
+    b = torch.randn(n, n, dtype=torch.bfloat16, device=dev, generator=g)
+    mm_ms = _gpu_ms(lambda: torch.matmul(a, b), iters=20)
+    del a, b
+    nbytes = 4 << 30
+    src = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = _gpu_ms(lambda: dst.copy_(src), iters=10)
+    del src, dst
+    torch.cuda.empty_cache()
+    tflops = 2 * n ** 3 / (mm_ms * 1e-3) / 1e12
+    gbs = 2 * nbytes / (copy_ms * 1e-3) / 1e9
+    total = torch.cuda.get_device_properties(0).total_memory
+    _line("roofline", smi)
+    _line("roofline", f"bf16 {n}^3 matmul {mm_ms:.4f} ms: {tflops:.1f} TFLOP/s "
+          f"against PEAK_FLOPS {rl.PEAK_FLOPS / 1e12:.1f} "
+          f"({100 * tflops * 1e12 / rl.PEAK_FLOPS:.1f}%)")
+    _line("roofline", f"4 GiB device-to-device copy {copy_ms:.4f} ms: "
+          f"{gbs:.1f} GB/s read + written against HBM_BW "
+          f"{rl.HBM_BW / 1e9:.1f} ({100 * gbs * 1e9 / rl.HBM_BW:.1f}%)")
+    _line("roofline", f"total_memory {total} bytes ({total / 2**30:.2f} GiB) "
+          f"against HBM_BYTES {rl.HBM_BYTES:.0f}")
+
+
+def _dryrun_cells():
+    """Phase 39: the dry-run's cells on the host; returns the records."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+
+    cells = [c + (True,) for c in DRYRUN_MULTI_POD]   # the longest first
+    cells += [c + (False,) for c in dryrun.all_cells(False)
+              if c not in dryrun.LOOP_BOUND]
+    t0 = time.perf_counter()
+    results = dryrun.run_cells(cells, jobs=DRYRUN_JOBS)
+    wall = time.perf_counter() - t0
+    records, failed, per_dev = [], [], {}
+    for arch, shape, status, rec, cell_s in results:
+        if status != "ok":
+            if status == "fail":
+                failed.append(f"{arch} x {shape}: {rec}")
+            _line("dryrun", f"{status.upper()} {arch} x {shape}: {rec}")
+            continue
+        terms = [rec[k] for k in ("compute_s", "memory_s", "collective_s",
+                                  "useful_flops_ratio", "bytes_per_device")]
+        if not all(math.isfinite(x) and x >= 0 for x in terms):
+            failed.append(f"{arch} x {shape}: terms {terms}")
+        counts = {k: v for k, v in rec["collective_counts"].items() if v}
+        _line("dryrun", f"{arch} x {shape} on {rec['mesh']}: compute "
+              f"{rec['compute_s']:.6f} s, memory {rec['memory_s']:.6f} s, "
+              f"collective {rec['collective_s']:.6f} s -> {rec['dominant']}; "
+              f"useful {rec['useful_flops_ratio']:.4f}, "
+              f"{rec['bytes_per_device'] / 2**30:.2f} GiB/dev, fits "
+              f"{rec['fits_hbm']}; {counts}; wall {cell_s:.1f} s")
+        per_dev[arch, shape, rec["mesh"]] = rec["bytes_per_device"]
+        if rec["mesh"] == "16x16":
+            records.append(rec)
+    for arch, shape in DRYRUN_MULTI_POD:
+        one = per_dev.get((arch, shape, "16x16"))
+        two = per_dev.get((arch, shape, "2x16x16"))
+        if one is not None and two is not None and not two <= one:
+            failed.append(f"{arch} x {shape}: {two / 2**30:.2f} GiB/dev on "
+                          f"2x16x16 against {one / 2**30:.2f} on 16x16")
+    if dist.is_initialized():
+        raise AssertionError("dry-run: a process group was left behind")
+    if failed:
+        raise AssertionError("dry-run cells failed: " + "; ".join(failed))
+    _line("dryrun", f"{len(results)} cells in {wall:.1f} s on "
+          f"{DRYRUN_JOBS} processes; no process group left")
+    return records
+
+
+def _colocation(dev, model, records, kernel_mods):
+    """Phase 40: co-location plans on the card against the CPU."""
+    import numpy as np
+    from repro_torch.core import colocation
+
+    stand_in = [{"arch": n.split("/")[0], "shape": n.split("/")[1],
+                 "compute_s": c, "memory_s": m, "collective_s": i,
+                 "useful_flops_ratio": u} for n, c, m, i, u in STAND_IN_JOBS]
+    sets = {"dry-run": records[:len(records) // 2 * 2], "stand-in": stand_in}
+    cpu = {name: colocation.plan_colocation(rs, model, device="cpu")
+           for name, rs in sets.items()}
+    for mod in kernel_mods.values():
+        mod.LAUNCHES = 0
+    card = {name: colocation.plan_colocation(rs, model, device=dev)
+            for name, rs in sets.items()}
+    launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+    if launches["pair_score"] != len(sets):
+        raise AssertionError(f"colocation: pair_score launched "
+                             f"{launches['pair_score']} times for "
+                             f"{len(sets)} plans")
+    rng = np.random.default_rng(40)
+    for name, rs in sets.items():
+        c, h = card[name], cpu[name]
+        if c.pairs != h.pairs:
+            raise AssertionError(f"colocation {name}: card pairs {c.pairs} "
+                                 f"vs CPU {h.pairs}")
+        rel = abs(c.predicted_cost - h.predicted_cost) / abs(h.predicted_cost)
+        if not rel <= 1e-5:
+            raise AssertionError(f"colocation {name}: predicted cost card "
+                                 f"{c.predicted_cost!r} CPU "
+                                 f"{h.predicted_cost!r}")
+        perm = rng.permutation(len(rs))
+        rand_pairs = [tuple(sorted(p)) for p in perm.reshape(-1, 2).tolist()]
+        synpa = colocation.evaluate_placement(rs, c.pairs)
+        rand = colocation.evaluate_placement(rs, rand_pairs)
+        _line("coloc", f"{name}: {len(rs)} jobs onto {len(c.pairs)} slices; "
+              f"pairs identical on the card and the CPU, predicted cost "
+              f"card {c.predicted_cost!r} CPU {h.predicted_cost!r} (rel "
+              f"{rel:.2e}); true mean slowdown SYNPA {synpa!r}, seeded "
+              f"random pairing {rand!r}")
+        for a, b in c.named_pairs():
+            _line("coloc", f"  {a} <-> {b}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4114,6 +4288,16 @@ def main() -> int:
         new_phase_s.append(time.perf_counter() - t0)
     new_s = time.perf_counter() - t_new
 
+    # 38-40. The roofline's constants, the dry-run, co-location.
+    t_dry = time.perf_counter()
+    _roofline_constants(dev)
+    t_39 = time.perf_counter()
+    dry_records = _dryrun_cells()
+    t_40 = time.perf_counter()
+    coloc_launches = _colocation(dev, model, dry_records, kernel_mods)
+    dry_s = time.perf_counter() - t_dry
+    dry_phase_s = (t_39 - t_dry, t_40 - t_39, t_dry + dry_s - t_40)
+
     new_paths = {"race_rings": ring_launches, "open_rings": open_ring_launches,
                  "grid_rings": grid_ring_launches,
                  "checkpointed": ckpt_launches,
@@ -4123,7 +4307,8 @@ def main() -> int:
                  "train": train_launches, "moe_serve": moe_serve_launches,
                  "vlm_serve": vlm_launches, "audio_serve": audio_launches,
                  **{f"{arch.split('-')[0]}_serve": v
-                    for arch, v in new_launches.items()}}
+                    for arch, v in new_launches.items()},
+                 "colocation": coloc_launches}
     kernels[0]["path_launches"] = {
         "race": launches["pair_score"], "open": open_launches["pair_score"],
         "grid": grid_launches["pair_score"],
@@ -4146,6 +4331,7 @@ def main() -> int:
     all_s = time.perf_counter() - t_start
     total_s = t_fam - t_start
     before_new = t_new - t_start
+    before_dry = t_dry - t_start
     before_s = total_s - rings_s - host_s - train_s
     _line("done", f"{all_s:.1f} s in all; phases 19-21 {rings_s:.1f} s, "
           f"{100 * rings_s / before_s:.1f}% added to phases "
@@ -4166,7 +4352,10 @@ def main() -> int:
           f"32-37 {new_s:.1f} s, {100 * new_s / before_new:.1f}% added to "
           f"phases 1-31's {before_new:.1f} s ("
           + ", ".join(f"{32 + i}: {x:.1f} s" for i, x in
-                      enumerate(new_phase_s)) + ")")
+                      enumerate(new_phase_s)) + f"); phases 38-40 "
+          f"{dry_s:.1f} s, {100 * dry_s / before_dry:.1f}% added to phases "
+          f"1-37's {before_dry:.1f} s (38: {dry_phase_s[0]:.1f} s, 39: "
+          f"{dry_phase_s[1]:.1f} s, 40: {dry_phase_s[2]:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

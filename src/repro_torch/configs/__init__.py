@@ -7,10 +7,11 @@ mixture-of-experts qwen2-moe-a2.7b and kimi-k2-1t-a32b (384 experts, top
 8, head dim 112); the vision model llama-3.2-vision-11b (gated image
 cross-attention every 5th layer); the encoder-decoder whisper-large-v3;
 the hybrid hymba-1.5b (attention and a Mamba mixer in parallel, a
-2048-token window); and the attention-free rwkv6-3b.  The reference's
-``shapes.py`` is still to be ported.
+2048-token window); and the attention-free rwkv6-3b.  ``shapes`` holds
+the dry-run's four input shapes.
 """
 
+from repro_torch.configs.shapes import SHAPES, InputShape, shapes_for
 from repro_torch.configs import (gemma_7b, hymba_1_5b, kimi_k2_1t_a32b,
                                  llama3_2_3b, llama_3_2_vision_11b,
                                  qwen1_5_0_5b, qwen2_moe_a2_7b, rwkv6_3b,

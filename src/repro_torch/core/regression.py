@@ -23,6 +23,8 @@ Operations (paper §5.3 steps 1-2):
   :func:`inverse_trace` give each solver's per-step residuals.
 * :func:`pair_cost_matrix` — dense all-pairs cost through
   ``repro_torch.kernels.pair_score``.
+* :func:`profile_to_training_set` — profiling runs -> training triples
+  (numpy).
 
 The GN Jacobian is assembled in closed form from Eq. 4's bilinear
 structure, and each LM step solves a batch of 8x8 damped normal equations
@@ -32,8 +34,9 @@ by an unrolled Cholesky.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import isc
@@ -594,3 +597,23 @@ def pair_cost_matrix(model: CategoryModel, st_stacks, n_valid=None,
         st_stacks.to(torch.float32).contiguous(), model.coeffs,
         n_categories=model.n_categories, n_valid=n_valid, valid=valid,
         idle_row=idle_row, p=p, idle_flag=idle_flag)
+
+
+def profile_to_training_set(
+    st_stacks: np.ndarray,
+    pair_smt_values: np.ndarray,
+    pairs: Sequence[Tuple[int, int]],
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Assemble (st_i, st_j, smt_i) training triples from profiling runs.
+
+    st_stacks:       (A, 4) per-app ST stacks.
+    pair_smt_values: (P, 2, 4) per-pair instruction-aligned SMT values.
+    pairs:           length-P list of (i, j) app indices.
+    """
+    xs_i, xs_j, ys = [], [], []
+    for p, (i, j) in enumerate(pairs):
+        xs_i.append(st_stacks[i]); xs_j.append(st_stacks[j])
+        ys.append(pair_smt_values[p, 0])
+        xs_i.append(st_stacks[j]); xs_j.append(st_stacks[i])
+        ys.append(pair_smt_values[p, 1])
+    return np.stack(xs_i), np.stack(xs_j), np.stack(ys)

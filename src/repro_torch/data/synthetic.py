@@ -6,6 +6,7 @@ chains) so a small model trained for a few hundred steps shows a cleanly
 falling loss.  ``host_batch(step, host_id, n_hosts)`` returns one host's
 slice of the global batch, derived from (seed, step, host), so any host
 can recompute any batch and a resumed run needs no iterator state.
+:func:`make_batch_specs` gives the dry-run's stand-ins for a batch.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 from typing import Dict
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -66,3 +68,32 @@ class SyntheticLM:
         full = self.global_batch_at(step)
         sl = slice(host_id * per, (host_id + 1) * per)
         return {k: v[sl] for k, v in full.items()}
+
+
+def make_batch_specs(cfg, seq_len: int, global_batch: int,
+                     kind: str) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors standing in for every model input of a dry-run
+    cell: int32 ``tokens`` (and ``labels`` to train), for the vlm
+    ``image_embeds`` and for audio ``audio_frames`` in the activation
+    dtype.  Nothing is allocated."""
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    i32 = torch.int32
+    dt = cfg.activation_dtype()
+    if kind == "train":
+        specs = {"tokens": spec((global_batch, seq_len), i32),
+                 "labels": spec((global_batch, seq_len), i32)}
+    elif kind == "prefill":
+        specs = {"tokens": spec((global_batch, seq_len), i32)}
+    elif kind == "decode":
+        specs = {"tokens": spec((global_batch, 1), i32)}
+    else:
+        raise ValueError(kind)
+    if cfg.family == "vlm" and kind in ("train", "prefill"):
+        specs["image_embeds"] = spec(
+            (global_batch, cfg.n_image_tokens, cfg.d_model), dt)
+    if cfg.family == "audio" and kind in ("train", "prefill"):
+        specs["audio_frames"] = spec(
+            (global_batch, cfg.encoder_seq, cfg.d_model), dt)
+    return specs

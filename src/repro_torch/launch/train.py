@@ -2,8 +2,9 @@
 
 Synthetic data, the training step, a checkpoint manager with resume and a
 heartbeat, as the reference's ``train``, without its mesh: a run takes one
-device (``model_parallel`` other than 1 waits for ``launch/mesh.py``,
-ROADMAP.md, section 1).  Checkpoints hold the reference's training state
+device (``model_parallel`` other than 1 would lay ``launch.mesh.
+make_host_mesh`` over an NCCL group, which nothing drives yet: ROADMAP.md,
+section 1).  Checkpoints hold the reference's training state
 tree (blocks stacked over layers), so each package resumes the other's.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
@@ -59,8 +60,8 @@ def train(
     if model_parallel != 1:
         raise NotImplementedError(
             f"model_parallel={model_parallel}: the port trains on one device; "
-            "the mesh (launch/mesh.py, sharding/) waits for a "
-            "torch.distributed consumer (ROADMAP.md, section 1)")
+            "nothing runs it over launch.mesh.make_host_mesh yet "
+            "(ROADMAP.md, section 1)")
     device = resolve_device(device)
     cfg = get_config(arch, smoke=smoke, **(overrides or {}))
     builder = TrainStepBuilder(

@@ -19,6 +19,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dot, param, truncated_normal_
+from repro_torch.sharding import local_heads, put_rows, reshape, shard
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -70,7 +71,7 @@ def _project_qkv(params: Attention, x, cfg: ModelConfig):
     b, s, d = x.shape
 
     def proj(w, bias):
-        y = dot(x, w.reshape(d, -1)).reshape(b, s, *w.shape[1:])
+        y = reshape(dot(x, w.reshape(d, -1)), b, s, *w.shape[1:])
         if bias is not None:
             y = y + bias.float()
         return y.to(x.dtype)
@@ -80,9 +81,12 @@ def _project_qkv(params: Attention, x, cfg: ModelConfig):
 
 
 def _out_proj(params: Attention, out, dtype):
+    """The output projection, its sum over the heads completed on every
+    device of a mesh (an all-reduce where the heads are sharded)."""
     b, s = out.shape[:2]
-    return dot(out.reshape(b, s, -1),
-               params.wo.reshape(-1, params.wo.shape[-1])).to(dtype)
+    wo = params.wo.reshape(-1, params.wo.shape[-1])
+    y = dot(reshape(out, b, s, -1), wo)
+    return shard(y.to(dtype), "batch", None, "embed")
 
 
 def _mask(q_len: int, kv_len: int, causal: bool, window: int, device=None):
@@ -101,11 +105,20 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     """Grouped scaled-dot-product attention with materialised scores.
 
     q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd); mask: (Sq, Skv) or None.
+    Over DTensors it runs on each device's rows and heads
+    (:func:`repro_torch.sharding.local_heads`).
     """
+    if mask is None:
+        return local_heads(lambda q, k, v: _sdpa_core(q, k, v, None),
+                           (q, k, v))
+    return local_heads(_sdpa_core, (q, k, v), shared=(mask,))
+
+
+def _sdpa_core(q, k, v, mask):
     b, sq, hq, hd = q.shape
     hkv = k.shape[2]
     group = hq // hkv
-    qg = q.reshape(b, sq, hkv, group, hd)
+    qg = reshape(q, b, sq, hkv, group, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
     scores = scores * (hd ** -0.5)
     if mask is not None:
@@ -113,7 +126,7 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype).float(),
                        v.float())
-    return out.reshape(b, sq, hq, hd).to(v.dtype)
+    return reshape(out, b, sq, hq, hd).to(v.dtype)
 
 
 def attention(params: Attention, x, cfg: ModelConfig, positions=None,
@@ -128,12 +141,16 @@ def attention(params: Attention, x, cfg: ModelConfig, positions=None,
                                       cfg.rope_theta)
         q = layers.apply_rope(q, cos, sin)
         k = layers.apply_rope(k, cos, sin)
+    q = shard(q, "batch", None, "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
     if cfg.attention_impl == "kernel":
         out = fa_ops.flash_attention(q, k, v, causal=causal,
                                      window=cfg.sliding_window)
     else:
         mask = _mask(s, s, causal, cfg.sliding_window, device=x.device)
         out = _sdpa(q, k, v, mask, cfg)
+    out = shard(out, "batch", None, "heads", None)
     return _out_proj(params, out, x.dtype)
 
 
@@ -145,8 +162,8 @@ def cross_attention(params: Attention, x, kv_src, cfg: ModelConfig
     with bare products), and always :func:`_sdpa`."""
     def proj(src, w):
         b, t, d = src.shape
-        return dot(src, w.reshape(d, -1)).reshape(b, t, *w.shape[1:]
-                                                   ).to(x.dtype)
+        return reshape(dot(src, w.reshape(d, -1)), b, t, *w.shape[1:]
+                       ).to(x.dtype)
 
     q = proj(x, params.wq)
     k, v = proj(kv_src, params.wk), proj(kv_src, params.wv)
@@ -184,26 +201,29 @@ def decode_attention(
                                       cfg.rope_theta)
         q = layers.apply_rope(q, cos, sin)
         k = layers.apply_rope(k, cos, sin)
-    bidx = torch.arange(b, device=x.device)
     slot = pos.clamp(max=max_len - 1)
-    inside = (pos < max_len)[:, None, None]
     for cache, new in ((k_cache, k), (v_cache, v)):
-        cache[bidx, slot] = torch.where(inside, new[:, 0].to(cache.dtype),
-                                        cache[bidx, slot])
+        put_rows(cache, slot, new[:, 0].to(cache.dtype), keep=pos < max_len)
 
-    hq, hkv = cfg.n_heads, cfg.n_kv_heads
-    hd = cfg.resolved_head_dim
-    group = hq // hkv
-    qg = q.reshape(b, hkv, group, hd)
-    scores = torch.einsum("bkgh,bskh->bkgs", qg.float(),
-                          k_cache.float()) * (hd ** -0.5)
     kpos = torch.arange(max_len, device=x.device)[None, :]
     valid = kpos <= pos[:, None]
     if cfg.sliding_window > 0:
-        valid &= kpos > (pos[:, None] - cfg.sliding_window)
+        valid = valid & (kpos > (pos[:, None] - cfg.sliding_window))
+    out = local_heads(decode_core, (q, k_cache, v_cache), rows=(valid,))
+    return _out_proj(params, out, x.dtype), k_cache, v_cache
+
+
+def decode_core(q, k_cache, v_cache, valid):
+    """One query token q (B, 1, Hq, hd) against a cache (B, S, Hkv, hd),
+    attending the slots where ``valid`` (B, S) holds -> (B, 1, Hq, hd) in
+    q's dtype."""
+    b, _, hq, hd = q.shape
+    hkv = k_cache.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", qg.float(),
+                          k_cache.float()) * (hd ** -0.5)
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", probs.to(v_cache.dtype).float(),
                        v_cache.float())
-    out = out.reshape(b, 1, hq, hd).to(x.dtype)
-    return _out_proj(params, out, x.dtype), k_cache, v_cache
+    return out.reshape(b, 1, hq, hd).to(q.dtype)

@@ -82,6 +82,16 @@ class ModelConfig:
         """RWKV6's heads: ``ssm_heads``, or one per 64 model dims."""
         return self.ssm_heads or max(self.d_model // 64, 1)
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch serve 500k-token contexts?  (An SSM state or a
+        sliding window keeps the per-token cost O(1) in the context.)"""
+        return self.family in ("ssm", "hybrid")
+
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding import gather_weight, lookup, shard
+
 F32 = torch.float32
 
 
@@ -41,7 +43,9 @@ def param(shape, dtype, device) -> nn.Parameter:
 
 
 def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` accumulated and returned in float32."""
+    """``x @ w`` accumulated and returned in float32 (a sharded weight
+    gathered first: see ``sharding.gather_weight``)."""
+    w = gather_weight(w)
     if x.dtype != F32 or w.dtype != F32:
         x, w = x.float(), w.float()
     return x @ w
@@ -99,7 +103,7 @@ class Unembed(nn.Module):
 
 
 def embed(table, ids, scale: bool = False):
-    x = table[ids.long()]
+    x = lookup(table, ids.long())
     if scale:
         x = x * torch.tensor(table.shape[1] ** 0.5, dtype=x.dtype,
                              device=x.device)
@@ -150,6 +154,9 @@ def mlp(x, wi, wi_gate, wo, activation: str):
     else:
         h = F.gelu(h, approximate="tanh")
     h = h.to(x.dtype)
+    if h.dim() == 3:
+        h = shard(h, "batch", None, "mlp")
+        return shard(dot(h, wo).to(x.dtype), "batch", None, "embed")
     return dot(h, wo).to(x.dtype)
 
 

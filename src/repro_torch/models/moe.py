@@ -11,10 +11,10 @@ Two dispatch strategies:
   tensor, the naive baseline (about 5.4 GB in float32 at a 4 x 2048
   prefill of qwen2-moe-a2.7b: keep it to small inputs).
 
-``shard_map`` is the reference's expert-parallel dispatch; on one device
-it is the reference's own mesh-less branch, which is ``scatter``.  The
-multi-device form waits for a ``torch.distributed`` consumer (ROADMAP.md,
-section 1).
+``shard_map`` is the reference's expert-parallel dispatch
+(:func:`_dispatch_shard_map`) over the mesh that ``repro_torch.sharding``
+installs (the dry-run's); without one it is the reference's own mesh-less
+branch, which is ``scatter``.
 
 The routing copies the reference's order exactly, because it decides
 which (token, slot) pairs the capacity drops: the top k by a stable
@@ -26,6 +26,7 @@ taking the first maximum.  Products accumulate in float32 and round once
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Tuple
 
 import torch
@@ -142,6 +143,97 @@ def _dispatch_scatter(params: MoE, x, cfg: ModelConfig):
     return y.to(x.dtype), probs
 
 
+def _shard_map_local(router_w, wi, wi_gate, wo, xt, rank: int,
+                     cfg: ModelConfig):
+    """One model-axis rank's part of the expert-parallel dispatch, the body
+    of the reference's ``shard_map``: the routing recomputed over the
+    rank's tokens ``xt`` (T, d), then a local scatter, the batched FFN and
+    a gather over its ``E_local = wi.shape[0]`` experts, those numbered
+    ``rank * E_local ...`` (inert padding past ``n_experts``).  Returns
+    (this rank's partial y (T, d), probs (T, E)); the ranks' partial y sum
+    to the layer's output."""
+    t, d = xt.shape
+    e_local, k = wi.shape[0], cfg.n_experts_per_token
+    topw, topi, probs = _router(SimpleNamespace(router=router_w), xt, cfg)
+    c = _capacity(t, cfg)
+    flat_ids = topi.T.reshape(-1)
+    local_ids = flat_ids - rank * e_local
+    mine = (local_ids >= 0) & (local_ids < e_local)
+    bucket = torch.where(mine, local_ids, e_local)
+    slots = torch.arange(e_local + 1, device=xt.device)
+    onehot = (bucket[None, :] == slots[:, None]).to(torch.int32)
+    pos = (torch.cumsum(onehot, dim=1) - 1).gather(0, bucket[None, :])[0]
+    keep = mine & (pos < c)
+    safe_ids = torch.where(mine, local_ids, 0)
+    safe_pos = torch.where(keep, pos, c - 1)
+    contrib = torch.where(keep[:, None], xt.repeat(k, 1), 0)
+    buf = xt.new_zeros((e_local, c, d)).index_put((safe_ids, safe_pos),
+                                                  contrib, accumulate=True)
+    experts = SimpleNamespace(experts_wi=wi, experts_wi_gate=wi_gate,
+                              experts_wo=wo)
+    out_buf = _expert_ffn(experts, buf, cfg)
+    gathered = torch.where(keep[:, None], out_buf[safe_ids, safe_pos], 0)
+    slot_w = topw.T.reshape(-1)
+    y = (gathered.float() * slot_w[:, None]).reshape(k, t, d).sum(0)
+    return y.to(xt.dtype), probs
+
+
+def _dispatch_shard_map(params: MoE, x, cfg: ModelConfig):
+    """Expert-parallel dispatch over the installed mesh (the reference's
+    production path).
+
+    Tokens are sharded over the data axes and replicated over the model
+    axis; every model rank recomputes the (cheap) routing and runs only
+    its own experts (:func:`_shard_map_local`), then an all-reduce over
+    the model axis merges the partial outputs.  An expert count the axis
+    does not divide (60 on 16) is padded with inert experts that no token
+    reaches.  Without a mesh, or on plain tensors, this is ``scatter``.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.sharding import batch_axes, current_mesh, current_rules
+
+    mesh = current_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return _dispatch_scatter(params, x, cfg)
+    names = mesh.mesh_dim_names
+    model_axis = current_rules().get("experts") or "model"
+    n_model = mesh.size(names.index(model_axis))
+    rank = mesh.get_local_rank(model_axis)
+    e = cfg.n_experts
+    e_local = -(-e // n_model)
+    data = batch_axes(mesh)
+    rows = 1
+    for a in data:
+        rows *= mesh.size(names.index(a))
+    tok_pl = [Shard(0) if a in data and x.shape[0] % rows == 0
+              else Replicate() for a in names]
+    whole = [Replicate()] * mesh.ndim
+
+    def experts(w):
+        """The rank's experts, whole on every other axis, padded."""
+        even = e % n_model == 0
+        pl = [Shard(0) if a == model_axis and even else Replicate()
+              for a in names]
+        local = w.redistribute(mesh, pl).to_local()
+        if even:
+            return local
+        local = local[rank * e_local:(rank + 1) * e_local]
+        pad = e_local - local.shape[0]
+        return F.pad(local, (0, 0, 0, 0, 0, pad)) if pad else local
+
+    y, probs = _shard_map_local(
+        params.router.redistribute(mesh, whole).to_local(),
+        experts(params.experts_wi), experts(params.experts_wi_gate),
+        experts(params.experts_wo), x.redistribute(mesh, tok_pl).to_local(),
+        rank, cfg)
+    partial = [Partial() if a == model_axis else p
+               for a, p in zip(names, tok_pl)]
+    y = DTensor.from_local(y, mesh, partial, run_check=False)
+    return (y.redistribute(mesh, tok_pl),
+            DTensor.from_local(probs, mesh, tok_pl, run_check=False))
+
+
 def _dispatch_einsum(params: MoE, x, cfg: ModelConfig):
     """One-hot einsum dispatch (the baseline with extra products)."""
     t, d = x.shape
@@ -171,6 +263,8 @@ def moe_layer(params: MoE, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
     xt = x.reshape(b * s, d)
     if cfg.moe_dispatch == "einsum":
         y, probs = _dispatch_einsum(params, xt, cfg)
+    elif cfg.moe_dispatch == "shard_map":
+        y, probs = _dispatch_shard_map(params, xt, cfg)
     else:
         y, probs = _dispatch_scatter(params, xt, cfg)
     if params.shared_wi is not None:

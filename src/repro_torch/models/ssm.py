@@ -27,6 +27,7 @@ paths call those two functions themselves.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict
 
 import torch
@@ -35,6 +36,7 @@ from torch import nn
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dot, param, truncated_normal_
+from repro_torch.sharding import batch_local, reshape, shard
 
 F32 = torch.float32
 #: Floats in each buffer that a chunk of a time loop holds (256 MiB in
@@ -84,10 +86,18 @@ class Mamba(nn.Module):
 
 def _mamba_inputs(params: Mamba, x):
     """x (..., d) -> (xin, z, dt, bmat, cmat), float32."""
-    xin = dot(x, params.w_in)
-    z = dot(x, params.w_gate)
-    dt = F.softplus(dot(xin, params.w_dt) + params.b_dt)
-    return xin, z, dt, dot(xin, params.w_b), dot(xin, params.w_c)
+    xin = _rows(dot(x, params.w_in), "mlp")
+    z = _rows(dot(x, params.w_gate), "mlp")
+    dt = F.softplus(_rows(dot(xin, params.w_dt), "mlp") + params.b_dt)
+    return (xin, z, dt, _rows(dot(xin, params.w_b), None),
+            _rows(dot(xin, params.w_c), None))
+
+
+def _rows(t, last):
+    """A (B, S, n) product laid out with its rows over "batch" (its
+    gradient then comes back that way too: DTensor would otherwise split
+    the sequence, which it cannot flatten); other ranks pass through."""
+    return shard(t, "batch", None, last) if t.dim() == 3 else t
 
 
 def _mamba_step(params: Mamba, state, xin_t, z_t, dt_t, b_t, c_t, a=None):
@@ -127,16 +137,32 @@ def _mamba_scan(params: Mamba, xin, z, dt, bmat, cmat):
     return torch.cat(ys).transpose(0, 1)
 
 
+def _scan_rows(scan, params, names, ins, *extra):
+    """``scan(params, *ins, *extra)`` on each device's own batch rows
+    (:func:`repro_torch.sharding.batch_local`), ``params`` cut down to the
+    parameters ``names`` that the scan reads: over DTensors the time loop
+    then runs on local tensors."""
+    def run(*t):
+        own = SimpleNamespace(**dict(zip(names, t[len(ins):])))
+        return scan(own, *t[:len(ins)], *extra)
+
+    return batch_local(run, tuple(ins), tuple(getattr(params, n)
+                                              for n in names))
+
+
 def mamba_forward(params: Mamba, x, cfg: ModelConfig):
     """Full-sequence selective scan.  x: (B, S, d) -> (B, S, d)."""
-    y = _mamba_scan(params, *_mamba_inputs(params, x))
-    return dot(y.to(x.dtype), params.w_out).to(x.dtype)
+    y = _scan_rows(_mamba_scan, params, ("a_log", "d_skip"),
+                   _mamba_inputs(params, x))
+    y = shard(y.to(x.dtype), "batch", None, "mlp")
+    return dot(y, params.w_out).to(x.dtype)
 
 
 def mamba_decode(params: Mamba, x, state, cfg: ModelConfig):
     """One-token decode.  x: (B, 1, d); state: (B, di, N) ->
     (out (B, 1, d), new state)."""
-    state, y = _mamba_step(params, state, *_mamba_inputs(params, x[:, 0]))
+    state, y = _scan_rows(_mamba_step, params, ("a_log", "d_skip"),
+                          (state,) + _mamba_inputs(params, x[:, 0]))
     out = dot(y.to(x.dtype), params.w_out).to(x.dtype)
     return out[:, None, :], state
 
@@ -204,7 +230,7 @@ def _rwkv_time_inputs(params: RWKV6, x, x_prev):
 
 
 def _rwkv_heads(t, h):
-    return t.reshape(t.shape[:-1] + (h, t.shape[-1] // h))
+    return reshape(t, t.shape[:-1] + (h, t.shape[-1] // h))
 
 
 def _rwkv_step(params: RWKV6, wkv, r, k, v, w, h):
@@ -238,17 +264,23 @@ def _rwkv_scan(params: RWKV6, r, k, v, w, h: int):
             wkv = torch.addcmul(kv[i], decay[i], wkv)
         outs.append(torch.einsum("tbhk,tbhkv->tbhv", rc,
                                  torch.stack(states) + u * kv))
-    return torch.cat(outs).transpose(0, 1).reshape(b, s, d)
+    return reshape(torch.cat(outs).transpose(0, 1), b, s, d)
 
 
 def rwkv6_time_mix(params: RWKV6, x, cfg: ModelConfig):
     """Full-sequence wkv6.  x: (B, S, d) -> (B, S, d)."""
     h = cfg.resolved_ssm_heads
-    x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    x_prev = token_shift(x)
     r, k, v, g, w = _rwkv_time_inputs(params, x.float(), x_prev.float())
-    out = _rwkv_scan(params, r, k, v, w, h)
+    out = _scan_rows(_rwkv_scan, params, ("u_bonus",), (r, k, v, w), h)
     out = out * params.ln_x * F.silu(g)
-    return dot(out.to(x.dtype), params.w_out).to(x.dtype)
+    out = shard(out.to(x.dtype), "batch", None, "mlp")
+    return dot(out, params.w_out).to(x.dtype)
+
+
+def token_shift(x):
+    """x (B, S, d) shifted one step later in time, zeros at step 0."""
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
 
 
 def rwkv6_channel_mix(params: RWKV6, x, x_prev):
@@ -272,7 +304,7 @@ def rwkv6_time_decode(params: RWKV6, a, state: Dict, cfg: ModelConfig):
     af = a.float()
     r, k, v, g, w = _rwkv_time_inputs(params, af, state["x_tm"])
     wkv, out = _rwkv_step(params, state["wkv"], r, k, v, w, h)
-    out = out.reshape(af.shape) * params.ln_x * F.silu(g)
+    out = reshape(out, af.shape) * params.ln_x * F.silu(g)
     y = dot(out.to(a.dtype), params.w_out).to(a.dtype)
     return y, {"wkv": wkv, "x_tm": af}
 

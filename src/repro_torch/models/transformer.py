@@ -48,7 +48,6 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -58,11 +57,11 @@ from repro_torch.models import layers
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import local_heads, put_rows, shard
+from repro_torch.sharding.plan import STACKED
 
 F32 = torch.float32
 FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
-#: The parameter groups the reference stacks on a leading layer axis.
-STACKED = ("blocks", "cross_blocks", "dec_cross", "encoder")
 
 #: The operators whose outputs ``remat="dots"`` keeps: the products.
 _PRODUCTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -134,7 +133,7 @@ class Block(nn.Module):
         if self.rwkv is not None:
             x = x + ssm_mod.rwkv6_time_mix(self.rwkv, a, cfg)
             b = layers.apply_norm(cfg.norm, self.ln2, x)
-            b_prev = F.pad(b, (0, 0, 1, 0))[:, :-1]
+            b_prev = ssm_mod.token_shift(b)
             x = x + ssm_mod.rwkv6_channel_mix(self.rwkv, b, b_prev)
             return x, torch.zeros((), dtype=F32, device=x.device)
         att = attn_mod.attention(self.attn, a, cfg, positions=positions,
@@ -144,7 +143,7 @@ class Block(nn.Module):
         else:
             x = x + att
         y, aux = self.ffn(layers.apply_norm(cfg.norm, self.ln2, x))
-        return x + y, aux
+        return shard(x + y, "batch", None, "embed"), aux
 
 
 class CrossBlock(nn.Module):
@@ -225,13 +224,16 @@ class Model(nn.Module):
         cfg = self.cfg
         x = layers.apply_norm(cfg.norm, self.final_norm, x)
         if cfg.tie_embeddings:
-            return layers.tied_unembed(x, self.embed.table, cfg.logit_softcap)
-        return layers.unembed(x, self.unembed.kernel, cfg.logit_softcap)
+            logits = layers.tied_unembed(x, self.embed.table,
+                                         cfg.logit_softcap)
+        else:
+            logits = layers.unembed(x, self.unembed.kernel, cfg.logit_softcap)
+        return shard(logits, "batch", None, "vocab")
 
     def _embed(self, tokens):
         tokens = torch.as_tensor(tokens, device=self.device)
         x = layers.embed(self.embed.table, tokens, scale=self.cfg.embed_scale)
-        return x.to(self.cfg.activation_dtype())
+        return shard(x.to(self.cfg.activation_dtype()), "batch", None, "embed")
 
     def _extra(self, arr):
         """A batch's embeddings in the activation dtype, on the device."""
@@ -435,18 +437,9 @@ def _ring_decode_attention(p_attn, a, k_c, v_c, pos, cfg: ModelConfig):
     cos, sin = layers.rope_angles(pos[:, None], hd, cfg.rope_theta)
     q = layers.apply_rope(q, cos, sin)
     k = layers.apply_rope(k, cos, sin)
-    bidx = torch.arange(b, device=a.device)
-    k_c[bidx, write_idx] = k[:, 0].to(k_c.dtype)
-    v_c[bidx, write_idx] = v[:, 0].to(v_c.dtype)
-    hq, hkv = cfg.n_heads, cfg.n_kv_heads
-    qg = q.reshape(b, hkv, hq // hkv, hd)
-    scores = torch.einsum("bkgh,bskh->bkgs", qg.float(),
-                          k_c.float()) * (hd ** -0.5)
+    put_rows(k_c, write_idx, k[:, 0].to(k_c.dtype))
+    put_rows(v_c, write_idx, v[:, 0].to(v_c.dtype))
     slot = torch.arange(cl, device=a.device)[None, :]
     written = (pos + 1 >= cl)[:, None] | (slot <= write_idx[:, None])
-    scores = scores.masked_fill(~written[:, None, None, :], attn_mod.NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgs,bskh->bkgh", probs.to(v_c.dtype).float(),
-                       v_c.float())
-    out = out.reshape(b, 1, hq, hd).to(a.dtype)
+    out = local_heads(attn_mod.decode_core, (q, k_c, v_c), rows=(written,))
     return attn_mod._out_proj(p_attn, out, a.dtype)

@@ -26,6 +26,7 @@ from repro_torch import to_device
 from repro_torch.models.transformer import Model, reference_ndim
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import linear_warmup_cosine
+from repro_torch.sharding import shard
 
 F32 = torch.float32
 
@@ -33,12 +34,56 @@ F32 = torch.float32
 def cross_entropy(logits, labels, z_loss: float = 1e-4):
     """Token-mean cross entropy (+ tiny z-loss for logit drift control):
     ``(ce + z_loss * mean(lse^2), ce)``."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    ce = torch.mean(lse - gold)
+    logits = shard(logits.float(), "batch", None, "vocab")
+    lse = shard(_logsumexp(logits), "batch", None)
+    ce = torch.mean(shard(lse[..., None] - _gold(logits,
+                                                 labels.long()[..., None]),
+                          "batch", None, None))
     zl = z_loss * torch.mean(torch.square(lse))
     return ce + zl, ce
+
+
+def _logsumexp(logits):
+    """``logsumexp`` over the vocabulary; over a DTensor sharded on it (the
+    dry-run's) written out, so that each device reduces its own shard and
+    only the (B, S) maxima and sums travel."""
+    if getattr(logits, "placements", None) is None:
+        return torch.logsumexp(logits, dim=-1)
+    m = shard(logits.detach().amax(-1, keepdim=True), "batch", None, None)
+    total = shard(torch.exp(logits - m).sum(-1, keepdim=True),
+                  "batch", None, None)
+    return (m + torch.log(total))[..., 0]
+
+
+def _gold(logits, idx):
+    """The labels' logits, (B, S, 1).
+
+    Over a DTensor (the dry-run's), the vocabulary-parallel gather: each
+    device reads, from its own logits, its rows' labels that fall in its
+    vocabulary shard (0 for the others), and the shards' parts are summed;
+    the backward pass scatters into each device's shard alone."""
+    placements = getattr(logits, "placements", None)
+    if placements is None:
+        return torch.gather(logits, -1, idx)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    mesh, vocab = logits.device_mesh, Shard(logits.dim() - 1)
+    (*_, n), (*_, lo) = compute_local_shape_and_global_offset(
+        logits.shape, mesh, placements)
+    rows = [Replicate() if p == vocab else p for p in placements]
+    ids = idx.redistribute(mesh, rows).to_local().reshape(-1) - lo
+    inside = (ids >= 0) & (ids < n)
+    # Indexing keeps no copy of the logits for the backward pass (a
+    # gather keeps its input).
+    flat = logits.to_local().reshape(-1, n)
+    gold = flat[torch.arange(flat.shape[0], device=flat.device),
+                ids.clamp(0, n - 1)] * inside
+    gold = gold.reshape(logits.to_local().shape[:-1] + (1,))
+    parts = [Partial() if p == vocab else p for p in placements]
+    return shard(DTensor.from_local(gold, mesh, parts, run_check=False),
+                 "batch", None, None)
 
 
 def _is_float(v) -> bool:
@@ -50,10 +95,20 @@ def _is_float(v) -> bool:
 def _grads(total, leaves):
     """d total / d leaf for every leaf; 0 for a leaf outside the graph (the
     QKV biases of a cross block, which cross-attention does not add), as
-    the reference's gradient of an unused parameter."""
+    the reference's gradient of an unused parameter.  A DTensor leaf's
+    gradient comes in the leaf's layout."""
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
+    return [torch.zeros_like(p) if g is None else _like(g, p)
             for p, g in zip(leaves, grads)]
+
+
+def _like(g, p):
+    """A DTensor gradient in its parameter's layout (the dry-run's: data
+    parallelism's reduce-scatter); any other passes through."""
+    placements = getattr(p, "placements", None)
+    if placements is None or tuple(g.placements) == tuple(placements):
+        return g
+    return g.redistribute(p.device_mesh, placements)
 
 
 def _fresh_state(model: Model, opt: AdamWConfig) -> Dict:

@@ -90,9 +90,9 @@ def _params_tree(model):
     "category_model_from_numpy", "device_tables_from_numpy", "build_model",
     "serve_demo", "model_params_from_numpy", "SynpaScheduler",
     "make_synpa_pipeline", "StreamingAllocator", "StreamingScheduler",
-    "ClusterSim(engine='host')", "inverse"])
+    "ClusterSim(engine='host')", "inverse", "plan_colocation"])
 def test_entry_points_raise_without_gpu(no_gpu, entry):
-    from repro_torch.core import regression, synpa
+    from repro_torch.core import colocation, regression, synpa
     from repro_torch.online import (ClusterSim, LinuxOnline, PoissonArrivals,
                                     StreamingAllocator, StreamingScheduler)
 
@@ -136,6 +136,10 @@ def test_entry_points_raise_without_gpu(no_gpu, entry):
             machine.SMTMachine(), profs, 2, LinuxOnline(),
             PoissonArrivals(rate=1.0, n_pool=len(profs)), **kw).run(2),
         "inverse": lambda **kw: regression.inverse(toy, frac, frac, **kw),
+        "plan_colocation": lambda **kw: colocation.plan_colocation(
+            [{"arch": "a", "shape": str(i), "compute_s": 1.0 + i,
+              "memory_s": 1.0, "collective_s": 0.5} for i in range(4)],
+            toy, **kw),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
