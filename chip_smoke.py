@@ -264,7 +264,17 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    before the card's plans and read just after (``pair_score`` once a
    plan): the card's pairs identical to the CPU's and ``predicted_cost``
    within 1e-5 relative; ``evaluate_placement`` of SYNPA's pairs beside a
-   seeded random pairing's (``[coloc]``).
+   seeded random pairing's (``[coloc]``);
+41. phase 26's run over a process group of one NCCL rank (this process,
+   a file store): ``launch.train.train`` lays a (1, 1) mesh and the
+   state and batches as DTensors; launches counted (0), syncs audited
+   (only the counted loss reads), steps clocked as in phase 26; its
+   logged losses within ``MESH_LOSS_RTOL`` of phase 26's (bit for bit
+   said apart), step wall, tokens/s, peak memory and host syncs beside
+   phase 26's; one more step under the profiler (device busy against
+   its wall); then phase 26's checkpoint check with the killed run over
+   the group and the resumed one without: equal bit for bit to 8
+   uninterrupted steps (``[trainmesh]``).
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -273,6 +283,7 @@ repository beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -340,6 +351,10 @@ RING_PROFILE_QUANTA = 6
 TRAIN_ARCH, MOE_ARCH = "qwen1.5-0.5b", "qwen2-moe-a2.7b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 512
 MOE_TRAIN_DEPTH, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH = 2, 10, 4
+#: Phase 41's limit on the one-rank mesh run's logged losses against phase
+#: 26's, relative.  The mesh run has given phase 26's losses bit for bit
+#: (the loss head's log-sum-exp takes the same ops in both).
+MESH_LOSS_RTOL = 1e-5
 #: The vlm and audio families (phases 29-31): the configurations, the
 #: vlm reference check's depth (one group of four self blocks and a cross
 #: block), the audio one's decoder and encoder depth, and whisper's text
@@ -3275,7 +3290,8 @@ class _StepClock:
     """Wraps ``TrainStepBuilder.train_step`` while in use: a CUDA event
     after each step (and one before the first), and each step's metrics
     kept on the card.  Neither reads anything back to the host, so the
-    wrapped run keeps its syncs."""
+    wrapped run keeps its syncs.  ``last`` holds the last step's builder,
+    state and batch."""
 
     def __enter__(self):
         import torch
@@ -3296,6 +3312,7 @@ class _StepClock:
             ev.record()
             clock.events.append(ev)
             clock.metrics.append(out[1])
+            clock.last = (builder, out[0], batch)
             return out
 
         self._cls.train_step = timed
@@ -3459,7 +3476,8 @@ def _train_run(dev, kernel_mods, arch: str, what: str, **kw):
     """One ``launch.train.train`` run on the card with every kernel's
     launch count set to 0 just before and read just after, its host syncs
     audited (only the counted loss reads may sync), its steps clocked.
-    Returns (result, launches, step times ms, metrics, peak bytes)."""
+    Returns (result, launches, step times ms, the :class:`_StepClock`,
+    peak bytes, host syncs)."""
     import torch
 
     from repro_torch.launch import train as train_mod
@@ -3493,7 +3511,7 @@ def _train_run(dev, kernel_mods, arch: str, what: str, **kw):
                              "counted loss reads")
     if any(launches.values()):
         raise AssertionError(f"{what}: training launched kernels {launches}")
-    return out, launches, step_ms, clock.metrics, peak
+    return out, launches, step_ms, clock, peak, len(seen)
 
 
 def _train_main_path(dev, kernel_mods):
@@ -3502,23 +3520,22 @@ def _train_main_path(dev, kernel_mods):
     (d_model 64, 2 layers, 4 x 64 tokens): the full size's state is 4.64
     GB a checkpoint, which the check would write five times.  Returns
     every kernel's launches in the main path's run."""
-    import tempfile
-
     import numpy as np
     import torch
 
-    from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.data.synthetic import SyntheticLM
-    from repro_torch.launch import train as train_mod
     from repro_torch.models.registry import build_model, get_config
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.step import TrainStepBuilder
 
-    out, launches, step_ms, _, peak = _train_run(
+    out, launches, step_ms, clock, peak, syncs = _train_run(
         dev, kernel_mods, TRAIN_ARCH, f"{TRAIN_ARCH} train", steps=TRAIN_STEPS,
         batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=10)
+    del clock   # it holds the run's last state
     med = float(np.median(step_ms[-10:]))
     toks = TRAIN_BATCH * TRAIN_SEQ
+    readings = {"losses": out["losses"], "step_ms": med,
+                "tokens_s": toks / med * 1e3, "peak": peak, "syncs": syncs}
     _line("train", f"{TRAIN_ARCH} full width and depth, bfloat16, "
           f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: loss "
           f"{out['first_loss']!r} (first log) -> {out['final_loss']!r} "
@@ -3588,11 +3605,39 @@ def _train_main_path(dev, kernel_mods):
     torch.cuda.empty_cache()
 
     # Killed after the step-4 checkpoint, resumed to 8: 8 steps bit for bit.
+    killed_at, n, same = _killed_and_resumed(dev, contextlib.nullcontext)
+    _line("train", f"{TRAIN_ARCH} smoke, bfloat16: killed after the step-"
+          f"{killed_at} checkpoint and resumed to step 8: {n} leaves "
+          f"equal to 8 uninterrupted steps bit for bit: {same}")
+    if killed_at != 4 or not same:
+        raise AssertionError("the resumed training run differs from the "
+                             "uninterrupted one")
+    return launches, readings
+
+
+#: The smoke run that a checkpoint check kills after its step-4 checkpoint
+#: and resumes to step 8 (phases 26 and 41): d_model 64, 2 layers, 4 x 64
+#: tokens (a full-size checkpoint is 4.64 GB).
+CKPT_RUN = dict(smoke=True, steps=8, batch=4, seq=64, ckpt_every=4,
+                log_every=4)
+
+
+def _killed_and_resumed(dev, killed_in):
+    """``CKPT_RUN`` killed right after its step-4 checkpoint (inside the
+    context ``killed_in()`` gives), then resumed to step 8 in a plain run,
+    against 8 uninterrupted plain steps.  Returns (the step it was killed
+    after, leaves, whether every leaf is equal bit for bit)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train as train_mod
+
     class _Killed(Exception):
         pass
 
-    run = dict(smoke=True, steps=8, batch=4, seq=64, ckpt_every=4,
-               log_every=4, device=dev)
+    run = dict(CKPT_RUN, device=dev)
     with tempfile.TemporaryDirectory() as tmp:
         full, split = os.path.join(tmp, "full"), os.path.join(tmp, "split")
         train_mod.train(TRAIN_ARCH, ckpt_dir=full, **run)
@@ -3604,7 +3649,8 @@ def _train_main_path(dev, kernel_mods):
 
         CheckpointManager.save = dying
         try:
-            train_mod.train(TRAIN_ARCH, ckpt_dir=split, **run)
+            with killed_in():
+                train_mod.train(TRAIN_ARCH, ckpt_dir=split, **run)
             raise AssertionError("the killed run was not killed")
         except _Killed:
             pass
@@ -3625,12 +3671,89 @@ def _train_main_path(dev, kernel_mods):
     same = a.keys() == b.keys() and all(
         a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
         for k in a)
-    _line("train", f"{TRAIN_ARCH} smoke, bfloat16: killed after the step-"
-          f"{killed_at} checkpoint and resumed to step 8: {len(a)} leaves "
-          f"equal to 8 uninterrupted steps bit for bit: {same}")
+    return killed_at, len(a), same
+
+
+@contextlib.contextmanager
+def _nccl_rank():
+    """A process group of one NCCL rank, this process, for the block (its
+    store a file in a temporary directory); destroyed on the way out."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def _train_mesh(dev, kernel_mods, plain):
+    """Phase 41: phase 26's run over a one-rank NCCL group (a (1, 1)
+    mesh, the state and batches as DTensors), its losses held to
+    ``plain``'s (phase 26's readings), then the checkpoint check with the
+    killed run on the group and the resumed one without.  Returns every
+    kernel's launches in the mesh run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sharding import make_plan, step_layout
+
+    with _nccl_rank():
+        out, launches, step_ms, clock, peak, syncs = _train_run(
+            dev, kernel_mods, TRAIN_ARCH,
+            f"{TRAIN_ARCH} train over a one-rank NCCL mesh",
+            steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=10)
+        # One more step of the run's state under the profiler, in the
+        # layout the run's steps took.
+        builder, state, batch = clock.last
+        mesh = next(iter(state["params"].values())).device_mesh
+        with step_layout(make_plan(fsdp=False), mesh):
+            wall, seen, dev_us = _device_profile(
+                lambda: builder.train_step(state, batch))
+        del builder, state, batch, clock
+    busy_ms = sum(dev_us(e) for e in seen) / 1e3
+    _line("profile", f"one {TRAIN_ARCH} train step over the one-rank NCCL "
+          f"mesh under the profiler: wall {wall * 1e3:.3f} ms, "
+          f"{sum(e.count for e in seen)} kernels, device busy {busy_ms:.3f} "
+          f"ms ({100 * busy_ms / (wall * 1e3):.1f}% of the profiled wall)")
+    for e in sorted(seen, key=dev_us, reverse=True)[:5]:
+        _line("profile", f"{dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:100]}")
+    med = float(np.median(step_ms[-10:]))
+    toks = TRAIN_BATCH * TRAIN_SEQ
+    got, want = np.array(out["losses"]), np.array(plain["losses"])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    same = got.tobytes() == want.tobytes()
+    _line("trainmesh", f"{TRAIN_ARCH} full width and depth, bfloat16, "
+          f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} over a "
+          f"one-rank NCCL mesh: losses {out['losses']}; against phase 26's "
+          f"within {rel:.3e} relative (limit {MESH_LOSS_RTOL:g}), bit for "
+          f"bit: {same}; launches {launches}")
+    _line("trainmesh", f"step wall {med:.3f} ms (median of the last 10) "
+          f"against phase 26's {plain['step_ms']:.3f} ms, "
+          f"{toks / med * 1e3:.1f} against {plain['tokens_s']:.1f} training "
+          f"tokens/s; peak memory {peak / 2**30:.3f} against "
+          f"{plain['peak'] / 2**30:.3f} GiB; host syncs {syncs} against "
+          f"{plain['syncs']} (every one a counted loss read); steps "
+          f"{[round(x, 3) for x in step_ms]}")
+    if len(got) != len(want) or not rel <= MESH_LOSS_RTOL:
+        raise AssertionError(f"the mesh run's losses differ from phase 26's "
+                             f"by {rel:.3e} relative")
+    torch.cuda.empty_cache()
+
+    killed_at, n, same = _killed_and_resumed(dev, _nccl_rank)
+    _line("trainmesh", f"{TRAIN_ARCH} smoke, bfloat16: killed after the "
+          f"step-{killed_at} checkpoint over the one-rank NCCL mesh and "
+          f"resumed to step 8 without a group: {n} leaves equal to 8 "
+          f"uninterrupted steps bit for bit: {same}")
     if killed_at != 4 or not same:
-        raise AssertionError("the resumed training run differs from the "
-                             "uninterrupted one")
+        raise AssertionError("the mesh run resumed without a group differs "
+                             "from the uninterrupted one")
     return launches
 
 
@@ -3640,11 +3763,12 @@ def _moe_train(dev, kernel_mods):
     import numpy as np
     import torch
 
-    out, launches, step_ms, metrics, peak = _train_run(
+    out, launches, step_ms, clock, peak, _ = _train_run(
         dev, kernel_mods, MOE_ARCH, f"{MOE_ARCH} train",
         steps=MOE_TRAIN_STEPS, batch=MOE_TRAIN_BATCH, seq=TRAIN_SEQ,
         log_every=5, overrides={"n_layers": MOE_TRAIN_DEPTH})
-    aux = [float(m["aux"]) for m in metrics]
+    aux = [float(m["aux"]) for m in clock.metrics]
+    del clock   # it holds the run's last state
     med = float(np.median(step_ms[-5:]))
     toks = MOE_TRAIN_BATCH * TRAIN_SEQ
     _line("train", f"{MOE_ARCH} full width, depth {MOE_TRAIN_DEPTH}, "
@@ -4237,7 +4361,7 @@ def main() -> int:
     t_train = time.perf_counter()
     _train_reference(dev)
     t_26 = time.perf_counter()
-    train_launches = _train_main_path(dev, kernel_mods)
+    train_launches, train_readings = _train_main_path(dev, kernel_mods)
     t_27 = time.perf_counter()
     _serving_reference(dev, MOE_ARCH)
     t_28 = time.perf_counter()
@@ -4298,6 +4422,11 @@ def main() -> int:
     dry_s = time.perf_counter() - t_dry
     dry_phase_s = (t_39 - t_dry, t_40 - t_39, t_dry + dry_s - t_40)
 
+    # 41. Training over a one-rank NCCL process group.
+    t_mesh = time.perf_counter()
+    mesh_launches = _train_mesh(dev, kernel_mods, train_readings)
+    mesh_s = time.perf_counter() - t_mesh
+
     new_paths = {"race_rings": ring_launches, "open_rings": open_ring_launches,
                  "grid_rings": grid_ring_launches,
                  "checkpointed": ckpt_launches,
@@ -4308,7 +4437,7 @@ def main() -> int:
                  "vlm_serve": vlm_launches, "audio_serve": audio_launches,
                  **{f"{arch.split('-')[0]}_serve": v
                     for arch, v in new_launches.items()},
-                 "colocation": coloc_launches}
+                 "colocation": coloc_launches, "train_mesh": mesh_launches}
     kernels[0]["path_launches"] = {
         "race": launches["pair_score"], "open": open_launches["pair_score"],
         "grid": grid_launches["pair_score"],
@@ -4332,6 +4461,7 @@ def main() -> int:
     total_s = t_fam - t_start
     before_new = t_new - t_start
     before_dry = t_dry - t_start
+    before_mesh = t_mesh - t_start
     before_s = total_s - rings_s - host_s - train_s
     _line("done", f"{all_s:.1f} s in all; phases 19-21 {rings_s:.1f} s, "
           f"{100 * rings_s / before_s:.1f}% added to phases "
@@ -4355,7 +4485,9 @@ def main() -> int:
                       enumerate(new_phase_s)) + f"); phases 38-40 "
           f"{dry_s:.1f} s, {100 * dry_s / before_dry:.1f}% added to phases "
           f"1-37's {before_dry:.1f} s (38: {dry_phase_s[0]:.1f} s, 39: "
-          f"{dry_phase_s[1]:.1f} s, 40: {dry_phase_s[2]:.1f} s)")
+          f"{dry_phase_s[1]:.1f} s, 40: {dry_phase_s[2]:.1f} s); phase 41 "
+          f"{mesh_s:.1f} s, {100 * mesh_s / before_mesh:.1f}% added to "
+          f"phases 1-40's {before_mesh:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

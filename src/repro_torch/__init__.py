@@ -31,7 +31,10 @@ def to_device(x, dtype, device) -> torch.Tensor:
     """A host array as a ``dtype`` tensor on ``device``, without a host
     sync: on a GPU the copy goes through page-locked memory, queued on the
     current stream (the caching host allocator keeps the buffer until the
-    copy is done).  A tensor already on a GPU is only moved and cast."""
+    copy is done).  A tensor already on a GPU is only moved and cast; a
+    DTensor (rows already on its ranks' devices) is only cast."""
+    if hasattr(x, "placements"):
+        return x.to(dtype)
     if isinstance(x, torch.Tensor) and x.device.type != "cpu":
         return x.to(device=device, dtype=dtype)
     t = torch.as_tensor(np.ascontiguousarray(x)).to(dtype)

@@ -8,6 +8,8 @@ import re
 import shutil
 from typing import Any, Dict, List, Optional, Tuple
 
+import torch.distributed as dist
+
 from repro_torch.checkpoint.ckpt import load_tree, save_tree
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -16,7 +18,8 @@ _STEP_RE = re.compile(r"^step_(\d+)$")
 class CheckpointManager:
     """Rotating step-indexed checkpoints under one root directory.
 
-    * ``save(step, tree)`` writes atomically and prunes to ``keep`` newest.
+    * ``save(step, tree)`` writes atomically and prunes to ``keep`` newest
+      (rank 0 of a process group alone, the others waiting for it).
     * ``restore_latest(like)`` returns (step, tree) of the newest *valid*
       checkpoint — corrupt/partial ones (crash mid-write) are skipped and
       removed, which is the node-failure recovery path.
@@ -36,9 +39,16 @@ class CheckpointManager:
         return sorted(out)
 
     def save(self, step: int, tree, meta: Optional[Dict] = None) -> str:
+        """Inside a process group only rank 0 writes (every rank holds the
+        same gathered tree), and every rank waits at a barrier until the
+        checkpoint is whole."""
         path = os.path.join(self.root, f"step_{step:08d}")
-        save_tree(path, tree, extra_meta=dict(meta or {}, step=step))
-        self._prune()
+        grouped = dist.is_available() and dist.is_initialized()
+        if not grouped or dist.get_rank() == 0:
+            save_tree(path, tree, extra_meta=dict(meta or {}, step=step))
+            self._prune()
+        if grouped:
+            dist.barrier()
         return path
 
     def _prune(self) -> None:

@@ -22,6 +22,7 @@ from repro_torch import resolve_device
 from repro_torch.core.regression import CategoryModel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import STACKED, Model
+from repro_torch.sharding import distribute_like, whole
 from repro_torch.smt.scan_engine import DeviceTables
 
 
@@ -73,8 +74,9 @@ def _tensor(arr) -> torch.Tensor:
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor as a host array; bfloat16 as the 2-byte void (its raw bits)
-    that the reference's checkpoints hold."""
-    t = t.detach().cpu()
+    that the reference's checkpoints hold.  A DTensor is gathered whole
+    first, a collective: every rank of its mesh makes it, in one order."""
+    t = whole(t.detach()).cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")
     return t.numpy()
@@ -168,7 +170,8 @@ def train_state_to_numpy(state: Dict) -> Dict:
     tree of host arrays: ``params``, ``opt`` (``mu``, ``nu``, ``count``)
     and ``step``, the parameters and moments stacked over layers.  Saved
     through a checkpoint manager, it holds the leaves of the reference's
-    training checkpoint."""
+    training checkpoint.  A sharded state's leaves are gathered whole,
+    leaf by leaf in the state's order, so every rank calls this."""
     opt = state["opt"]
     return {"params": _stacked(state["params"]),
             "opt": {"mu": _stacked(opt["mu"]), "nu": _stacked(opt["nu"]),
@@ -180,17 +183,24 @@ def train_state_from_numpy(tree, model: Model) -> Dict:
     """The reference's training state tree (host arrays) -> a training
     state for ``model``: the weights are copied into the model, whose
     parameters become the state's ``params`` (with gradients on), and the
-    moments land on its device in the dtype they were saved in."""
+    moments land on its device in the dtype they were saved in.  Where
+    the model's parameters are DTensors (a sharded run, every rank
+    reading the same tree), each rank keeps its own part of each weight
+    and moment, laid out as the parameter."""
     dev = model.device
+    params = dict(model.named_parameters())
+
+    def laid_out(name, t):
+        return distribute_like(t.to(dev), params[name])
+
     with torch.no_grad():
         for name, t in _unstacked(tree["params"], model).items():
-            model.get_parameter(name).copy_(t)
-    params = dict(model.named_parameters())
+            params[name].copy_(laid_out(name, t))
     for p in params.values():
         p.requires_grad_(True)
 
     def moments(sub):
-        return {n: t.to(dev) for n, t in _unstacked(sub, model).items()}
+        return {n: laid_out(n, t) for n, t in _unstacked(sub, model).items()}
 
     def scalar(arr):
         return torch.tensor(np.asarray(arr), dtype=torch.int32, device=dev)

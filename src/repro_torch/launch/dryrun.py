@@ -49,8 +49,9 @@ from repro_torch.data.synthetic import make_batch_specs
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import mesh_name, production_mesh
 from repro_torch.models.registry import get_config, list_archs
-from repro_torch.sharding import (axis_rules, logical_to_mesh, make_plan,
-                                  param_partition_specs, placements_for)
+from repro_torch.sharding import (batch_sharding, distribute_model,
+                                  distribute_tree, logical_to_mesh, make_plan,
+                                  step_layout)
 from repro_torch.sharding.plan import mesh_shape_of, sanitize_spec
 
 
@@ -193,19 +194,6 @@ def input_specs(arch: str, shape_name: str,
     return make_batch_specs(cfg, shape.seq_len, shape.global_batch, shape.kind)
 
 
-def _batch_sharding(specs: Mapping[str, torch.Tensor], plan, mesh,
-                    batch_shardable: bool) -> Dict[str, tuple]:
-    """A spec for each batch entry: the batch dimension over the data
-    axes when it divides, the rest whole."""
-    ba = "batch" if batch_shardable else None   # logical name, not mesh axes
-    out = {}
-    for name, leaf in specs.items():
-        dims = [ba] + [None] * (leaf.dim() - 1)
-        spec = logical_to_mesh(dims, plan.activation_rules)
-        out[name] = sanitize_spec(spec, tuple(leaf.shape), mesh_shape_of(mesh))
-    return out
-
-
 def _cache_sharding(cache, plan, mesh, batch_shardable: bool) -> Dict:
     """Specs for the decode cache (the same nesting as the cache): ``k``,
     ``v`` (L, B, S, Hkv, hd), ``ssm`` (L, B, d_inner, N), ``rwkv/wkv`` (L,
@@ -253,52 +241,23 @@ def active_params(cfg, total: int) -> float:
 
 
 # ---------------------------------------------------------------------- cell
-def _distribute(t: torch.Tensor, spec, mesh):
-    from torch.distributed.tensor import distribute_tensor
-
-    return distribute_tensor(t, mesh, placements_for(spec, mesh),
-                             src_data_rank=None)
-
-
-def _distribute_tree(tree, specs, mesh):
-    return {k: (_distribute_tree(v, specs[k], mesh) if isinstance(v, dict)
-                else _distribute(v, specs[k], mesh)) for k, v in tree.items()}
-
-
-def _distribute_model(model, plan, mesh) -> Dict[str, tuple]:
-    """Replace every parameter of ``model`` by a DTensor laid out by the
-    plan; returns the specs by parameter name."""
-    specs = param_partition_specs(model.named_parameters(), plan, mesh)
-    for name, p in list(model.named_parameters()):
-        mod_name, _, leaf = name.rpartition(".")
-        mod = model.get_submodule(mod_name)
-        mod._parameters[leaf] = torch.nn.Parameter(
-            _distribute(p.detach(), specs[name], mesh), requires_grad=False)
-    return specs
-
-
 def _trace(model, cfg, shape, plan, mesh, batch_shardable, opt_kw):
     """Run the cell's step over DTensors under a :class:`StepCounter`;
     returns (counter, argument bytes, parameter count, model FLOPs)."""
-    from torch.distributed.tensor.experimental import implicit_replication
-
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.step import TrainStepBuilder
 
-    pspecs = _distribute_model(model, plan, mesh)
+    distribute_model(model, plan, mesh)
     params = dict(model.named_parameters())
     n_params = count_params(params)
     batch = input_specs(cfg.name, shape.name, cfg)
-    batch = _distribute_tree(
-        batch, _batch_sharding(batch, plan, mesh, batch_shardable), mesh)
+    batch = distribute_tree(
+        batch, batch_sharding(batch, plan, mesh, batch_shardable), mesh)
     counter = StepCounter()
-    with axis_rules(plan.activation_rules, mesh), implicit_replication():
+    with step_layout(plan, mesh):
         if shape.kind == "train":
             builder = TrainStepBuilder(model, AdamWConfig(**(opt_kw or {})))
-            state = builder.fresh_state()
-            opt = state["opt"]
-            for m in ("mu", "nu"):
-                opt[m] = _distribute_tree(opt[m], pspecs, mesh)
+            state = builder.fresh_state()   # moments laid out as the weights
             args = (state, batch)
             with counter:
                 out = builder.train_step(state, batch)
@@ -314,7 +273,7 @@ def _trace(model, cfg, shape, plan, mesh, batch_shardable, opt_kw):
                                     "inference")
         else:
             cache = model.init_cache(shape.global_batch, shape.seq_len)
-            cache = _distribute_tree(
+            cache = distribute_tree(
                 cache, _cache_sharding(cache, plan, mesh, batch_shardable),
                 mesh)
             args = (params, cache, batch["tokens"])

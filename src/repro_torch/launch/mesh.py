@@ -18,15 +18,18 @@ counted as an all-gather of equal bytes, and its gathered buffer is live
 for a moment.
 
 :func:`make_host_mesh` lays a (data, model) mesh over the ranks of a real
-process group that the caller has initialised (NCCL on GPUs, gloo on the
-CPU).
+process group (NCCL on GPUs, gloo on the CPU): one the caller has
+initialised, or one :func:`host_group` joins from the environment that
+``torch.distributed.run`` sets.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import os
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
@@ -92,3 +95,48 @@ def make_host_mesh(model_parallel: int = 1):
     device = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device, (n // model_parallel, model_parallel),
                             mesh_dim_names=("data", "model"))
+
+
+#: The backend of each device type's process group.
+BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+@contextlib.contextmanager
+def host_group(device):
+    """The process group a run on ``device`` lays its mesh over, for the
+    block: yields this rank's device, or None when there is no group.
+
+    The group is the one the caller has initialised, if any (left as it
+    is on the way out); else, when ``torch.distributed.run``'s
+    environment is set (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``), one joined from it and destroyed on the way out.
+    The backend is NCCL for ``cuda`` and gloo for ``cpu``: a group of the
+    other backend is refused, a failed init fails, and nothing falls back
+    to another backend or device.  On ``cuda`` the rank's device is
+    ``cuda:LOCAL_RANK`` (the rank modulo the host's devices when the
+    variable is unset), made current.
+    """
+    device = torch.device(device)
+    backend = BACKENDS[device.type]
+    made = False
+    if not dist.is_initialized():
+        if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+            yield None
+            return
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend, init_method="env://")
+        made = True
+    try:
+        if dist.get_backend() != backend:
+            raise RuntimeError(f"a {device.type} run needs a {backend} "
+                               f"process group, not {dist.get_backend()}")
+        if device.type == "cuda":
+            local = int(os.environ.get(
+                "LOCAL_RANK", dist.get_rank() % torch.cuda.device_count()))
+            torch.cuda.set_device(local)
+            device = torch.device("cuda", local)
+        yield device
+    finally:
+        if made:
+            dist.destroy_process_group()

@@ -191,7 +191,8 @@ def _dispatch_shard_map(params: MoE, x, cfg: ModelConfig):
     """
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-    from repro_torch.sharding import batch_axes, current_mesh, current_rules
+    from repro_torch.sharding import (batch_axes, current_mesh, current_rules,
+                                      local_part)
 
     mesh = current_mesh()
     if mesh is None or not isinstance(x, DTensor):
@@ -209,29 +210,62 @@ def _dispatch_shard_map(params: MoE, x, cfg: ModelConfig):
     tok_pl = [Shard(0) if a in data and x.shape[0] % rows == 0
               else Replicate() for a in names]
     whole = [Replicate()] * mesh.ndim
+    # What a rank computes for its own experts alone (the routing to
+    # them, their products) has a gradient that covers those experts
+    # alone: the model ranks' gradients are summed, as the data ranks'
+    # are for their own tokens.
+    by_expert = [Shard(0) if a == model_axis else p
+                 for a, p in zip(names, tok_pl)]
 
     def experts(w):
         """The rank's experts, whole on every other axis, padded."""
         even = e % n_model == 0
         pl = [Shard(0) if a == model_axis and even else Replicate()
               for a in names]
-        local = w.redistribute(mesh, pl).to_local()
+        local = local_part(w, pl, by_expert)
         if even:
             return local
         local = local[rank * e_local:(rank + 1) * e_local]
         pad = e_local - local.shape[0]
         return F.pad(local, (0, 0, 0, 0, 0, pad)) if pad else local
 
-    y, probs = _shard_map_local(
-        params.router.redistribute(mesh, whole).to_local(),
+    y, _ = _shard_map_local(
+        local_part(params.router, whole, by_expert),
         experts(params.experts_wi), experts(params.experts_wi_gate),
-        experts(params.experts_wo), x.redistribute(mesh, tok_pl).to_local(),
+        experts(params.experts_wo), local_part(x, tok_pl, by_expert),
         rank, cfg)
+    # The router's probabilities (the load-balance loss's) are the same on
+    # every model rank: computed apart, their gradient is not summed over
+    # the model axis.
+    router = SimpleNamespace(router=local_part(params.router, whole, tok_pl))
+    _, _, probs = _router(router, local_part(x, tok_pl), cfg)
     partial = [Partial() if a == model_axis else p
                for a, p in zip(names, tok_pl)]
     y = DTensor.from_local(y, mesh, partial, run_check=False)
     return (y.redistribute(mesh, tok_pl),
             DTensor.from_local(probs, mesh, tok_pl, run_check=False))
+
+
+def _dispatch_whole(dispatch, params: MoE, x, cfg: ModelConfig):
+    """``dispatch(params, x, cfg)``; over DTensors run on the whole tokens
+    and experts on every rank, so that each expert's capacity and the
+    tokens it drops are those of the whole call, as on one device (the
+    expert-parallel ``shard_map`` dispatch counts them a rank at a time).
+    Every rank computes the same: the gradients are laid out whole."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.sharding import local_part
+
+    if not isinstance(x, DTensor):
+        return dispatch(params, x, cfg)
+    mesh = x.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    own = SimpleNamespace(**{n: local_part(getattr(params, n), whole) for n in
+                             ("router", "experts_wi", "experts_wi_gate",
+                              "experts_wo")})
+    y, probs = dispatch(own, local_part(x, whole), cfg)
+    return (DTensor.from_local(y, mesh, whole, run_check=False),
+            DTensor.from_local(probs, mesh, whole, run_check=False))
 
 
 def _dispatch_einsum(params: MoE, x, cfg: ModelConfig):
@@ -261,12 +295,12 @@ def moe_layer(params: MoE, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
                          f"{DISPATCHES}")
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    if cfg.moe_dispatch == "einsum":
-        y, probs = _dispatch_einsum(params, xt, cfg)
-    elif cfg.moe_dispatch == "shard_map":
+    if cfg.moe_dispatch == "shard_map":
         y, probs = _dispatch_shard_map(params, xt, cfg)
     else:
-        y, probs = _dispatch_scatter(params, xt, cfg)
+        y, probs = _dispatch_whole(
+            _dispatch_einsum if cfg.moe_dispatch == "einsum"
+            else _dispatch_scatter, params, xt, cfg)
     if params.shared_wi is not None:
         h = dot(xt, params.shared_wi)
         g = dot(xt, params.shared_wi_gate)

@@ -19,6 +19,8 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from repro_torch.sharding import distribute_like, whole
+
 F32 = torch.float32
 
 
@@ -35,12 +37,13 @@ class AdamWConfig:
 
 
 def adamw_init(params: Mapping[str, torch.Tensor], cfg: AdamWConfig) -> Dict:
+    """Zero moments, each laid out as its parameter (a DTensor's on each
+    rank as its own part)."""
     mdt = getattr(torch, cfg.moment_dtype)
     dev = next(iter(params.values())).device
 
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
-                for n, p in params.items()}
+        return {n: torch.zeros_like(p, dtype=mdt) for n, p in params.items()}
 
     return {"mu": zeros(), "nu": zeros(),
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -50,8 +53,10 @@ def _global_norm(grads) -> torch.Tensor:
     # Each gradient's rows first, then their norms: no full-size
     # temporary, a sharded (DTensor) gradient is not gathered, and float32
     # sums stay short (one pass over 311 M values drifts by 4e-3 on a CPU).
+    # A DTensor's norm is reduced over the ranks (one all-reduce of a
+    # scalar a leaf), so the result is a plain tensor, the same on each.
     norm = torch.linalg.vector_norm
-    return norm(torch.stack([norm(norm(g, dim=-1, dtype=torch.float32))
+    return norm(torch.stack([whole(norm(norm(g, dim=-1, dtype=F32)))
                              for g in grads]))
 
 
@@ -84,6 +89,8 @@ def adamw_update(
     gradient; without it the noise is drawn from ``generator`` (seeded 0
     on the parameters' device when not given): the reference draws its
     noise through threefry, which a ``torch.Generator`` cannot reproduce.
+    The noise is drawn at a gradient's global shape and laid out as the
+    gradient, so a sharded run rounds as the one-device run does.
     """
     lr = cfg.lr if lr is None else lr
     names = list(params)
@@ -95,7 +102,9 @@ def adamw_update(
             noise = {n: torch.rand(grads[n].shape, generator=generator,
                                    dtype=F32, device=dev) - 0.5
                      for n in names}
-        grads = {n: _compress_int8(grads[n], noise[n]) for n in names}
+        grads = {n: _compress_int8(grads[n],
+                                   distribute_like(noise[n], grads[n]))
+                 for n in names}
 
     gnorm = _global_norm([grads[n] for n in names])
     clip = torch.clamp(cfg.grad_clip_norm / torch.clamp(gnorm, min=1e-12),

@@ -139,6 +139,43 @@ def reshape(x, *shape):
     return _GatheringReshape.apply(x, tuple(shape))
 
 
+def local_part(t, placements, rows=None):
+    """``t`` laid out as ``placements``, as this rank's local tensor; a
+    plain tensor passes through.
+
+    The local tensor's gradient is taken as laid out as ``t``, unless
+    ``rows`` (the placements of the batch rows that ``t`` meets) is
+    given: ``t`` is then shared by those rows, and on each mesh axis
+    that splits the rows but not ``t`` a rank's gradient covers only its
+    own rows, so the ranks' gradients are summed (``Partial``) as data
+    parallelism sums them."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    grad = None
+    if rows is not None:
+        grad = [Partial() if isinstance(r, Shard) and not isinstance(p, Shard)
+                else p for p, r in zip(placements, rows)]
+    return t.redistribute(t.device_mesh, placements).to_local(
+        grad_placements=grad)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous: a DTensor takes its
+    local tensor's layout as contiguous, so the gradient of a local tensor
+    that a time-major loop transposed would break the views of later ops
+    in the backward pass."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def batch_axes(mesh) -> Tuple[str, ...]:
     """The mesh axes the installed "batch" rule names (present in ``mesh``)."""
     rule = current_rules().get("batch")
@@ -152,10 +189,11 @@ def batch_local(fn, batched, shared=()):
     Over DTensors, every ``batched`` tensor (batch first) is laid out with
     its rows over the "batch" rule's mesh axes (replicated where the batch
     does not divide) and whole on every other axis, every ``shared`` one
-    replicated; ``fn`` gets the local tensors, and its (batch-first)
-    result, or each tensor of a tuple result, is laid out the same way.
-    A time loop then runs on plain local tensors, not as one
-    redistribution per step.  Plain tensors go straight to ``fn``.
+    replicated, its gradient summed over the ranks that split the rows
+    (:func:`local_part`); ``fn`` gets the local tensors, and its
+    (batch-first) result, or each tensor of a tuple result, is laid out
+    the same way.  A time loop then runs on plain local tensors, not as
+    one redistribution per step.  Plain tensors go straight to ``fn``.
     """
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -170,18 +208,17 @@ def batch_local(fn, batched, shared=()):
     row_pl = [Shard(0) if split and a in axes else Replicate()
               for a in mesh.mesh_dim_names]
     whole = [Replicate()] * mesh.ndim
-
-    def local(t, placements):
-        if not isinstance(t, DTensor):
-            return t
-        return t.redistribute(mesh, placements).to_local()
-
-    out = fn(*(local(t, row_pl) for t in batched),
-             *(local(t, whole) for t in shared))
+    out = fn(*(_ContiguousGrad.apply(local_part(t, row_pl))
+               for t in batched),
+             *(_ContiguousGrad.apply(local_part(t, whole, row_pl))
+               for t in shared))
+    # A DTensor takes its local tensor's layout as contiguous: a local
+    # transpose would break the views of later ops (and their backward).
     if isinstance(out, tuple):
-        return tuple(DTensor.from_local(t, mesh, row_pl, run_check=False)
-                     for t in out)
-    return DTensor.from_local(out, mesh, row_pl, run_check=False)
+        return tuple(DTensor.from_local(t.contiguous(), mesh, row_pl,
+                                        run_check=False) for t in out)
+    return DTensor.from_local(out.contiguous(), mesh, row_pl,
+                              run_check=False)
 
 
 def local_heads(fn, headed, rows=(), shared=()):
@@ -194,7 +231,8 @@ def local_heads(fn, headed, rows=(), shared=()):
     does not divide them; the heads only when every headed tensor's count
     divides, so that a device's query heads meet their own KV heads),
     every ``rows`` tensor (batch dim 0: a per-row mask) with its rows
-    alone, every ``shared`` one replicated; ``fn``'s result (batch dim 0,
+    alone, every ``shared`` one replicated (its gradient summed over the
+    ranks that split the rows); ``fn``'s result (batch dim 0,
     heads dim 2) is laid out as the headed tensors.  Attention then runs
     on plain local tensors, where DTensor could not merge a sharded batch
     with sharded heads.  Plain tensors go straight to ``fn``.
@@ -220,15 +258,12 @@ def local_heads(fn, headed, rows=(), shared=()):
     head_pl = [Shard(2) if by_heads and a in head_axes else p
                for a, p in zip(names, row_pl)]
 
-    def local(t, placements):
-        if not isinstance(t, DTensor):
-            return t
-        return t.redistribute(mesh, placements).to_local()
-
-    out = fn(*(local(t, head_pl) for t in headed),
-             *(local(t, row_pl) for t in rows),
-             *(local(t, [Replicate()] * mesh.ndim) for t in shared))
-    return DTensor.from_local(out, mesh, head_pl, run_check=False)
+    whole = [Replicate()] * mesh.ndim
+    out = fn(*(local_part(t, head_pl) for t in headed),
+             *(local_part(t, row_pl) for t in rows),
+             *(local_part(t, whole, row_pl) for t in shared))
+    return DTensor.from_local(out.contiguous(), mesh, head_pl,
+                              run_check=False)
 
 
 def lookup(table, ids):
@@ -236,7 +271,8 @@ def lookup(table, ids):
     lookup: each device gathers the table's columns, reads the rows of
     its own vocabulary slice for its own batch rows (0 for ids outside the
     slice), and an all-reduce over the vocabulary's axes sums the slices;
-    the result's rows are laid out over the "batch" rule's axes."""
+    the result's rows are laid out over the "batch" rule's axes, and the
+    table's gradient is summed over the ranks that split them."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
@@ -254,7 +290,7 @@ def lookup(table, ids):
                 for p in table.placements]
     (n, _), (lo, _) = compute_local_shape_and_global_offset(
         table.shape, mesh, vocab_pl)
-    rows = table.redistribute(mesh, vocab_pl).to_local()
+    rows = local_part(table, vocab_pl, row_pl)
     if isinstance(ids, DTensor):
         ids = ids.redistribute(mesh, row_pl).to_local()
     local = ids - lo

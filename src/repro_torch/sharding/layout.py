@@ -1,0 +1,96 @@
+"""Laying a model, its training state and its batches out over a mesh.
+
+One piece of code for every run that lays tensors out by a
+:class:`~repro_torch.sharding.plan.ShardingPlan`: the dry-run over a fake
+process group (``launch/dryrun.py``) and training over a real one
+(``launch/train.py``).  Each rank holds the whole tensor and keeps its
+own part of it (``src_data_rank=None``): nothing is sent, so every rank
+must hold the same values (weights drawn from one seed, a checkpoint
+read by every rank).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Mapping
+
+import torch
+
+from repro_torch.sharding.ctx import (axis_rules, logical_to_mesh,
+                                      placements_for)
+from repro_torch.sharding.plan import (mesh_shape_of, param_partition_specs,
+                                       sanitize_spec)
+
+
+def distribute(t: torch.Tensor, spec, mesh):
+    """``t`` (the whole tensor, the same on every rank) as a DTensor laid
+    out by ``spec`` over ``mesh``, each rank keeping its own part."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, mesh, placements_for(spec, mesh),
+                             src_data_rank=None)
+
+
+def distribute_like(t: torch.Tensor, like):
+    """``t`` (the whole tensor, the same on every rank) laid out as
+    ``like`` if that is a DTensor, each rank keeping its own part; else
+    ``t`` as it is."""
+    if not hasattr(like, "placements"):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, like.device_mesh, like.placements,
+                             src_data_rank=None)
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole on every rank, a collective that every
+    rank of its mesh makes; any other tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def distribute_tree(tree, specs, mesh):
+    """:func:`distribute` over a nested dict, ``specs`` of the same
+    nesting."""
+    return {k: (distribute_tree(v, specs[k], mesh) if isinstance(v, dict)
+                else distribute(v, specs[k], mesh)) for k, v in tree.items()}
+
+
+def distribute_model(model, plan, mesh) -> Dict[str, tuple]:
+    """Replace every parameter of ``model`` by a DTensor laid out by the
+    plan (gradients off, as a model's parameters start); returns the specs
+    by parameter name."""
+    specs = param_partition_specs(model.named_parameters(), plan, mesh)
+    for name, p in list(model.named_parameters()):
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(mod_name)
+        mod._parameters[leaf] = torch.nn.Parameter(
+            distribute(p.detach(), specs[name], mesh), requires_grad=False)
+    return specs
+
+
+def batch_sharding(specs: Mapping[str, torch.Tensor], plan, mesh,
+                   batch_shardable: bool = True) -> Dict[str, tuple]:
+    """A spec for each batch entry (anything with the entry's global
+    ``shape``): the batch dimension over the data axes when it divides,
+    the rest whole."""
+    ba = "batch" if batch_shardable else None   # logical name, not mesh axes
+    out = {}
+    for name, leaf in specs.items():
+        shape = tuple(leaf.shape)
+        dims = [ba] + [None] * (len(shape) - 1)
+        spec = logical_to_mesh(dims, plan.activation_rules)
+        out[name] = sanitize_spec(spec, shape, mesh_shape_of(mesh))
+    return out
+
+
+@contextlib.contextmanager
+def step_layout(plan, mesh):
+    """The context a step over ``mesh`` runs in: the plan's rules
+    installed with the mesh, and plain tensors that meet DTensors taken as
+    replicated.  Every such tensor must be the same on each rank (drawn
+    from one seed, or computed from replicated values): nothing checks."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with axis_rules(plan.activation_rules, mesh), implicit_replication():
+        yield

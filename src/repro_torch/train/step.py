@@ -16,6 +16,7 @@ refused.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Tuple
 
 import numpy as np
@@ -26,7 +27,7 @@ from repro_torch import to_device
 from repro_torch.models.transformer import Model, reference_ndim
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import linear_warmup_cosine
-from repro_torch.sharding import shard
+from repro_torch.sharding import shard, whole
 
 F32 = torch.float32
 
@@ -44,15 +45,35 @@ def cross_entropy(logits, labels, z_loss: float = 1e-4):
 
 
 def _logsumexp(logits):
-    """``logsumexp`` over the vocabulary; over a DTensor sharded on it (the
-    dry-run's) written out, so that each device reduces its own shard and
-    only the (B, S) maxima and sums travel."""
-    if getattr(logits, "placements", None) is None:
-        return torch.logsumexp(logits, dim=-1)
-    m = shard(logits.detach().amax(-1, keepdim=True), "batch", None, None)
-    total = shard(torch.exp(logits - m).sum(-1, keepdim=True),
-                  "batch", None, None)
-    return (m + torch.log(total))[..., 0]
+    """``logsumexp`` over the vocabulary (see :class:`_LogSumExp`)."""
+    return _LogSumExp.apply(logits)
+
+
+class _LogSumExp(torch.autograd.Function):
+    """``logsumexp`` over the last dimension.  Over a DTensor sharded on
+    it (the dry-run's, a sharded run's) written out, so that each device
+    reduces its own shard and only the (B, S) maxima and sums travel: the
+    ops and their order are ``torch.logsumexp``'s, and so is the backward
+    pass, written here for both, so that a run over a one-rank mesh gives
+    the one-device run's numbers bit for bit.  Keeps the logits and the
+    result for the backward pass, as ``torch.logsumexp`` does."""
+
+    @staticmethod
+    def forward(ctx, logits):
+        if getattr(logits, "placements", None) is None:
+            lse = torch.logsumexp(logits, dim=-1)
+        else:
+            m = shard(logits.amax(-1, keepdim=True), "batch", None, None)
+            total = shard(torch.exp(logits - m).sum(-1, keepdim=True),
+                          "batch", None, None)
+            lse = shard((torch.log(total) + m)[..., 0], "batch", None)
+        ctx.save_for_backward(logits, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse = ctx.saved_tensors
+        return g[..., None] * (logits - lse[..., None]).exp()
 
 
 def _gold(logits, idx):
@@ -90,6 +111,35 @@ def _is_float(v) -> bool:
     if isinstance(v, torch.Tensor):
         return v.is_floating_point()
     return np.asarray(v).dtype.kind == "f"
+
+
+def _microbatches(batch: Dict, n: int):
+    """``batch`` cut into ``n`` microbatches of contiguous rows: the i-th
+    holds rows [i m, (i+1) m) of the global batch, as the reference's
+    reshape to (n, B / n, ...) takes them.  A DTensor entry is gathered
+    whole once, and each microbatch is laid out as the entry where its
+    rows divide the entry's row axes, else replicated."""
+    rows = {k: whole(v).reshape((n, v.shape[0] // n) + v.shape[1:])
+            for k, v in batch.items()}
+    for i in range(n):
+        yield {k: _rows_like(r[i], batch[k]) for k, r in rows.items()}
+
+
+def _rows_like(t, like):
+    """``t``, some rows of the batch entry ``like``, laid out as ``like``
+    (each rank keeping its own part) where they divide the mesh axes that
+    split ``like``'s rows, else replicated; as it is for a plain
+    ``like``."""
+    if not hasattr(like, "placements"):
+        return t
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    mesh, placements = like.device_mesh, list(like.placements)
+    split = math.prod(mesh.size(i) for i, p in enumerate(placements)
+                      if getattr(p, "dim", None) == 0)
+    if t.shape[0] % split:
+        placements = [Replicate()] * mesh.ndim
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
 
 
 def _grads(total, leaves):
@@ -184,12 +234,9 @@ class TrainStepBuilder:
         else:
             # Contiguous microbatches, gradients summed in float32.
             n = self.grad_accum
-            g_sum = [torch.zeros(p.shape, dtype=F32, device=dev)
-                     for p in leaves]
+            g_sum = [torch.zeros_like(p, dtype=F32) for p in leaves]
             loss_sum = torch.zeros((), dtype=F32, device=dev)
-            for i in range(n):
-                mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
-                      for k, v in batch.items()}
+            for i, mb in enumerate(_microbatches(batch, n)):
                 total, m = self.loss_fn(params, mb)
                 for acc, g in zip(g_sum, _grads(total, leaves)):
                     acc += g
