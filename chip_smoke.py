@@ -274,7 +274,20 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    phase 26's; one more step under the profiler (device busy against
    its wall); then phase 26's checkpoint check with the killed run over
    the group and the resumed one without: equal bit for bit to 8
-   uninterrupted steps (``[trainmesh]``).
+   uninterrupted steps (``[trainmesh]``);
+42. serving over the same kind of group (``[servemesh]``): phase 10's
+   ``serve_demo`` joined to it (the weights, the decode cache and each
+   step's tokens as DTensors over a (1, 1) mesh), launches counted (0),
+   syncs audited (only the counted token reads), its tokens identical to
+   phase 10's, its decode steps (CUDA events) and tokens/s beside phase
+   10's; phase 10's 4 x 2048 prefill through ``ServeEngine.prefill`` over
+   the group (exactly 24 ``flash_attention`` launches on each rank's
+   local tensors; logits within ``MESH_LOGIT_REL`` of the largest |logit|
+   of the one-device prefill, which must repeat phase 10's, bit for bit
+   said apart; peak memory beside phase 10's); hymba-1.5b and rwkv6-3b at
+   full width and depth ``MESH_STATE_DEPTH`` through
+   ``MESH_DECODE_STEPS`` greedy decode steps with and without the group,
+   tokens identical.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -355,6 +368,11 @@ MOE_TRAIN_DEPTH, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH = 2, 10, 4
 #: 26's, relative.  The mesh run has given phase 26's losses bit for bit
 #: (the loss head's log-sum-exp takes the same ops in both).
 MESH_LOSS_RTOL = 1e-5
+#: Phase 42's limits and sizes: the group prefill's logits against the
+#: one-device prefill's, relative to the largest |logit|; the greedy
+#: decode steps and the depth of the recurrent-state check.
+MESH_LOGIT_REL = 1e-5
+MESH_DECODE_STEPS, MESH_STATE_DEPTH = 24, 2
 #: The vlm and audio families (phases 29-31): the configurations, the
 #: vlm reference check's depth (one group of four self blocks and a cross
 #: block), the audio one's decoder and encoder depth, and whisper's text
@@ -1100,7 +1118,7 @@ def _serving_reference(dev, arch: str = SERVE_ARCH, twins=None) -> None:
 def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
                        dtype: str = "float32", seq: int = PREFILL_S,
                        expect=None, prefill_b: int = PREFILL_B, decode=(64, 32),
-                       demo: bool = True, overrides=None):
+                       demo: bool = True, overrides=None, readings=None):
     """Phases 10, 28, 30, 31 and 33-37: ``arch``'s serving main path at
     full width and depth (or ``overrides``) in ``dtype``: one prefill of
     ``prefill_b`` x ``seq`` tokens (with the batch's image or frame
@@ -1110,8 +1128,15 @@ def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
     of ``decode`` = (max_len, the slots' position), the time loops apart
     from the products for hybrid and ssm, then, with ``demo``,
     ``serve_demo`` (its own float32 model, built once the prefill's model
-    is gone).  Returns every kernel's launches in the prefill and
-    ``serve_demo``, and the prefill's non-causal flash launches."""
+    is gone; its decode steps clocked by :class:`_ServeClock`).  Returns
+    every kernel's launches in the prefill and ``serve_demo``, and the
+    prefill's non-causal flash launches; fills ``readings``, if given,
+    with what phase 42 holds its run to: the first prefill's logits'
+    float64 sum and largest |logit| (``prefill_sum``, ``prefill_absmax``),
+    the decode step's wall, kernels and device busy share (``step_ms``,
+    ``step_kernels``, ``step_busy``), the peak memory (``peak``),
+    ``serve_demo``'s result (``demo``) and its decode steps' times
+    (``demo_step_ms``)."""
     import numpy as np
     import torch
 
@@ -1153,6 +1178,10 @@ def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
         raise AssertionError(f"prefill logits {tuple(logits.shape)}")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("prefill logits not finite")
+    if readings is not None:
+        lo, hi = torch.aminmax(logits)
+        readings.update(prefill_sum=float(logits.sum(dtype=torch.float64)),
+                        prefill_absmax=max(-float(lo), float(hi)))
     del logits
     shapes = {k: tuple(v.shape) for k, v in extras.items()}
     _line("serve", f"{arch} full width ({cfg.n_layers} layers"
@@ -1215,6 +1244,9 @@ def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
           f"kernels a step, device busy {busy_step:.1f}%; flash launches a "
           f"prefill {prefill_launches['flash_attention']}; peak memory "
           f"{peak / 1e9:.2f} GB ({peak / 2**30:.3f} GiB)")
+    if readings is not None:
+        readings.update(step_ms=step_ms, peak=peak, step_kernels=n_step,
+                        step_busy=busy_step)
     del model, engine, cache, batch, extras
     torch.cuda.empty_cache()
 
@@ -1222,12 +1254,18 @@ def _serving_main_path(dev, kernel_mods, arch: str = SERVE_ARCH,
     if demo:
         for mod in kernel_mods.values():
             mod.LAUNCHES = 0
-        out = serve_demo(arch, smoke=False, device=dev)
+        with _ServeClock() as clock:
+            out = serve_demo(arch, smoke=False, device=dev)
         launches = {n: prefill_launches[n] + m.LAUNCHES
                     for n, m in kernel_mods.items()}
+        steps = clock.step_ms()
         _line("serve", f"serve_demo: {out['requests']} requests, "
               f"{out['tokens']} tokens in {out['seconds']:.3f} s "
-              f"({out['tok_per_s']:.1f} tok/s); samples {out['outputs']}")
+              f"({out['tok_per_s']:.1f} tok/s); {len(steps)} decode steps, "
+              f"median {float(np.median(steps)):.3f} ms (CUDA events); "
+              f"samples {out['outputs']}")
+        if readings is not None:
+            readings.update(demo=out, demo_step_ms=steps)
         if out["requests"] != 12 or out["tokens"] != 12 * 16:
             raise AssertionError(f"serve_demo served {out['requests']} "
                                  f"requests, {out['tokens']} tokens")
@@ -3286,6 +3324,46 @@ def _host_open(dev, model, kernel_mods, open_runs):
     return total
 
 
+class _ServeClock:
+    """Wraps ``ServeEngine.serve_step`` while in use: a CUDA event before
+    and after each decode step, read after the run.  Nothing is read back
+    to the host during it, so the wrapped run keeps its syncs."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.serve.engine import ServeEngine
+
+        self.events = []
+        self._orig = ServeEngine.serve_step
+        clock = self
+
+        def timed(engine, cache, tokens):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = clock._orig(engine, cache, tokens)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            clock.events.append((start, end))
+            return out
+
+        ServeEngine.serve_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve.engine import ServeEngine
+
+        ServeEngine.serve_step = self._orig
+        return False
+
+    def step_ms(self):
+        """Each decode step's time on the card's clock, start to end."""
+        import torch
+
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
 class _StepClock:
     """Wraps ``TrainStepBuilder.train_step`` while in use: a CUDA event
     after each step (and one before the first), and each step's metrics
@@ -3755,6 +3833,202 @@ def _train_mesh(dev, kernel_mods, plain):
         raise AssertionError("the mesh run resumed without a group differs "
                              "from the uninterrupted one")
     return launches
+
+
+def _greedy_steps(model, steps: int = MESH_DECODE_STEPS):
+    """``steps`` greedy decode steps of 4 slots on a 64-token cache from
+    seeded tokens (under a mesh, the tokens whole on every rank): every
+    step's tokens, on the host."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import whole
+
+    engine = ServeEngine(model, max_len=64, batch_size=4)
+    cache = model.init_cache(4, 64)
+    tok = torch.as_tensor(np.random.default_rng(42).integers(
+        0, model.cfg.vocab_size, (4, 1)), device=model.device)
+    out = []
+    for _ in range(steps):
+        logits, cache = engine.serve_step(cache, tok)
+        tok = whole(torch.argmax(logits[:, -1], dim=-1))[:, None]
+        out.append(tok.cpu().numpy())
+    return np.concatenate(out, axis=1)
+
+
+def _serve_mesh(dev, kernel_mods, phase10):
+    """Phase 42: serving over a one-rank NCCL group (a (1, 1) mesh; the
+    weights, the decode cache and each step's tokens as DTensors), held to
+    phase 10 (``phase10``, its readings): (a) ``serve_demo`` at its
+    defaults, its tokens, launches (none), host syncs (the counted token
+    reads alone) and decode steps; (b) phase 10's prefill through
+    ``ServeEngine.prefill`` over the group, the flash kernel on each
+    rank's local tensors; (c) hymba-1.5b and rwkv6-3b, full width, depth
+    ``MESH_STATE_DEPTH``, through ``MESH_DECODE_STEPS`` greedy steps with
+    and without the group.  (b) also times and profiles one decode step of
+    its laid-out model as phase 10 does its own.  Returns every kernel's
+    launches in (a) and (b)'s prefill."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve_demo
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.sharding import distribute_model, make_plan, step_layout
+
+    plan = make_plan(fsdp=False)
+    with _nccl_rank():
+        # (a) serve_demo joined to the group.
+        box = {}
+        for mod in kernel_mods.values():
+            mod.LAUNCHES = 0
+        reads0 = engine_mod.TOKEN_READS
+        torch.cuda.synchronize()
+        with _ServeClock() as clock:
+            seen = _audited(lambda: box.setdefault(
+                "out", serve_demo(SERVE_ARCH, smoke=False, device=dev)))
+        reads = engine_mod.TOKEN_READS - reads0
+        demo_launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+        out, want = box["out"], phase10["demo"]
+        steps, want_steps = clock.step_ms(), phase10["demo_step_ms"]
+        med, want_med = float(np.median(steps)), float(np.median(want_steps))
+        same = out["generated"] == want["generated"]
+        _line("servemesh", f"{SERVE_ARCH} full size, float32: serve_demo "
+              f"over a one-rank NCCL mesh ({out['ranks']} rank): "
+              f"{out['requests']} requests, {out['tokens']} tokens identical"
+              f" to phase 10's: {same}; launches {demo_launches}; host syncs "
+              f"{len(seen)}, token reads counted {reads}")
+        _line("servemesh", f"decode step wall {med:.3f} ms (median of "
+              f"{len(steps)}, CUDA events) against phase 10's {want_med:.3f}"
+              f" ms (median of {len(want_steps)}), {med / want_med:.2f}x; "
+              f"{out['tok_per_s']:.1f} against {want['tok_per_s']:.1f} tok/s "
+              f"({out['seconds']:.3f} against {want['seconds']:.3f} s); "
+              f"phase 10's decode step at position 32 alone "
+              f"{phase10['step_ms']:.3f} ms")
+        if len(seen) != reads:
+            for msg in sorted(set(seen)):
+                _line("syncs", msg[:200])
+            raise AssertionError(f"serve_demo over the mesh: {len(seen)} host "
+                                 f"syncs, {reads} counted token reads")
+        if not same or out["ranks"] != 1:
+            raise AssertionError("serve_demo over the mesh: tokens differ "
+                                 "from phase 10's")
+        if any(demo_launches.values()):
+            raise AssertionError(f"serve_demo launched {demo_launches}")
+        torch.cuda.empty_cache()
+
+        # (b) phase 10's prefill, one device and then over the group.
+        cfg = get_config(SERVE_ARCH, dtype="float32", param_dtype="float32",
+                         attention_impl="kernel")
+        model = build_model(cfg, device=dev, seed=0)
+        engine = engine_mod.ServeEngine(model, max_len=64, batch_size=4)
+        toks = torch.as_tensor(np.random.default_rng(10).integers(
+            0, cfg.vocab_size, (PREFILL_B, PREFILL_S)).astype(np.int32),
+            device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        plain = engine.prefill({"tokens": toks})
+        plain_peak = torch.cuda.max_memory_allocated()
+        lo, hi = torch.aminmax(plain)
+        scale = max(-float(lo), float(hi))
+        again = (float(plain.sum(dtype=torch.float64)) == phase10["prefill_sum"]
+                 and scale == phase10["prefill_absmax"])
+        plain = plain.cpu()
+        mesh = make_host_mesh(1)
+        distribute_model(model, plan, mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in kernel_mods.values():
+            mod.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with step_layout(plan, mesh):
+            logits = engine.prefill({"tokens": toks})
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        prefill_launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
+        peak = torch.cuda.max_memory_allocated()
+        local = logits.to_local()
+        err, same = 0.0, tuple(logits.shape) == tuple(plain.shape)
+        for b in range(PREFILL_B):
+            row = plain[b].to(dev)
+            err = max(err, float((local[b] - row).abs().max()))
+            same &= bool(torch.equal(local[b], row))
+        _line("servemesh", f"prefill {PREFILL_B} x {PREFILL_S} over the mesh "
+              f"(logits {type(logits).__name__} {tuple(logits.shape)}, "
+              f"{logits.placements}): first call {first_s:.3f} s, launches "
+              f"{prefill_launches}; logits within {err:.3e} of the "
+              f"one-device prefill's (limit {MESH_LOGIT_REL:g} x "
+              f"{scale:.4f}), bit for bit: {same}; the one-device prefill "
+              f"repeats phase 10's (float64 sum, largest |logit|): {again}; "
+              f"peak memory over the call {peak / 2**30:.3f} GiB against "
+              f"{plain_peak / 2**30:.3f} GiB over the one-device call (the "
+              f"model built before either; phase 10's whole phase "
+              f"{phase10['peak'] / 2**30:.3f} GiB)")
+        if prefill_launches["flash_attention"] != cfg.n_layers or any(
+                v for n, v in prefill_launches.items()
+                if n != "flash_attention"):
+            raise AssertionError(f"the group prefill launched "
+                                 f"{prefill_launches}, expected "
+                                 f"{cfg.n_layers} flash launches alone")
+        if not again:
+            raise AssertionError("the one-device prefill does not repeat "
+                                 "phase 10's")
+        if not (tuple(logits.shape) == tuple(plain.shape)
+                and err <= MESH_LOGIT_REL * scale):
+            raise AssertionError(f"the group prefill's logits differ by "
+                                 f"{err:.3e} (largest |logit| {scale})")
+        del logits, local, plain, row
+        torch.cuda.empty_cache()
+        # One decode step of the laid-out model, as phase 10 times its
+        # own: 4 slots at position 32 of a 64-token cache.
+        step_tok = torch.as_tensor(np.arange(4, dtype=np.int32)[:, None],
+                                   device=dev)
+        with step_layout(plan, mesh):
+            cache = model.init_cache(4, 64)
+            cache["pos"].fill_(32)
+            step_ms = _wall_ms(lambda: engine.serve_step(cache, step_tok),
+                               reps=9)
+            wall, seen, dev_us = _device_profile(
+                lambda: engine.serve_step(cache, step_tok))
+        busy_ms = sum(dev_us(e) for e in seen) / 1e3
+        n_kernels = sum(e.count for e in seen)
+        _line("servemesh", f"decode step over the mesh (4 slots, position "
+              f"32): {step_ms:.3f} ms (median of 9) against phase 10's "
+              f"{phase10['step_ms']:.3f} ms, {step_ms / phase10['step_ms']:.2f}"
+              f"x; under the profiler {n_kernels} kernels, device busy "
+              f"{busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.1f}% of the "
+              f"profiled wall {wall * 1e3:.3f} ms) against phase 10's "
+              f"{phase10['step_kernels']} kernels, "
+              f"{phase10['step_busy']:.1f}%")
+        for e in sorted(seen, key=dev_us, reverse=True)[:5]:
+            _line("profile", f"{dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
+                  f"{e.key[:100]}")
+        del model, engine, cache
+        torch.cuda.empty_cache()
+
+        # (c) the recurrent states, with and without the group.
+        for arch in (HYMBA_ARCH, RWKV_ARCH):
+            cfg = get_config(arch, dtype="float32", param_dtype="float32",
+                             n_layers=MESH_STATE_DEPTH)
+            want = _greedy_steps(build_model(cfg, device=dev, seed=0))
+            model = build_model(cfg, device=dev, seed=0)
+            distribute_model(model, plan, mesh)
+            with step_layout(plan, mesh):
+                got = _greedy_steps(model)
+            same = np.array_equal(got, want)
+            _line("servemesh", f"{arch} full width, depth "
+                  f"{MESH_STATE_DEPTH}, float32: {MESH_DECODE_STEPS} greedy "
+                  f"decode steps of 4 slots over the mesh and without: tokens"
+                  f" identical: {same}")
+            if not same:
+                raise AssertionError(f"{arch}: the mesh's greedy tokens "
+                                     "differ from the one-device run's")
+            del model
+            torch.cuda.empty_cache()
+    return {n: demo_launches[n] + prefill_launches[n] for n in kernel_mods}
 
 
 def _moe_train(dev, kernel_mods):
@@ -4316,7 +4590,9 @@ def main() -> int:
     stamp("8")
     _serving_reference(dev)
     stamp("9")
-    path_launches, _ = _serving_main_path(dev, kernel_mods)
+    serve_readings = {}
+    path_launches, _ = _serving_main_path(dev, kernel_mods,
+                                          readings=serve_readings)
     stamp("10")
     kernels += _serving_kernel_times(dev, rng, serve_errs, path_launches)
     stamp("11")
@@ -4427,6 +4703,11 @@ def main() -> int:
     mesh_launches = _train_mesh(dev, kernel_mods, train_readings)
     mesh_s = time.perf_counter() - t_mesh
 
+    # 42. Serving over a one-rank NCCL process group.
+    t_serve_mesh = time.perf_counter()
+    serve_mesh_launches = _serve_mesh(dev, kernel_mods, serve_readings)
+    serve_mesh_s = time.perf_counter() - t_serve_mesh
+
     new_paths = {"race_rings": ring_launches, "open_rings": open_ring_launches,
                  "grid_rings": grid_ring_launches,
                  "checkpointed": ckpt_launches,
@@ -4437,7 +4718,8 @@ def main() -> int:
                  "vlm_serve": vlm_launches, "audio_serve": audio_launches,
                  **{f"{arch.split('-')[0]}_serve": v
                     for arch, v in new_launches.items()},
-                 "colocation": coloc_launches, "train_mesh": mesh_launches}
+                 "colocation": coloc_launches, "train_mesh": mesh_launches,
+                 "serve_mesh": serve_mesh_launches}
     kernels[0]["path_launches"] = {
         "race": launches["pair_score"], "open": open_launches["pair_score"],
         "grid": grid_launches["pair_score"],
@@ -4487,7 +4769,9 @@ def main() -> int:
           f"1-37's {before_dry:.1f} s (38: {dry_phase_s[0]:.1f} s, 39: "
           f"{dry_phase_s[1]:.1f} s, 40: {dry_phase_s[2]:.1f} s); phase 41 "
           f"{mesh_s:.1f} s, {100 * mesh_s / before_mesh:.1f}% added to "
-          f"phases 1-40's {before_mesh:.1f} s")
+          f"phases 1-40's {before_mesh:.1f} s; phase 42 {serve_mesh_s:.1f} s,"
+          f" {100 * serve_mesh_s / (t_serve_mesh - t_start):.1f}% added to "
+          f"phases 1-41's {t_serve_mesh - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

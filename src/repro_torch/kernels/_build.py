@@ -122,10 +122,15 @@ class CudaLibrary:
 
 
 def check_inputs(where: str, dtypes, **tensors) -> None:
-    """Raise unless every tensor lies on one CUDA device, has one of
-    ``dtypes``, is contiguous and starts on a 16-byte boundary."""
+    """Raise unless every tensor is a plain tensor (a DTensor's
+    ``data_ptr()`` is not its local data: a kernel takes each rank's local
+    tensor), lies on one CUDA device, has one of ``dtypes``, is contiguous
+    and starts on a 16-byte boundary."""
     device = None
     for name, t in tensors.items():
+        if hasattr(t, "placements"):
+            raise TypeError(f"{where}: {name} is a DTensor; pass each rank's "
+                            "local tensor (sharding.local_heads)")
         if t.device.type != "cuda":
             raise ValueError(f"{where}: {name} is on {t.device}, not a GPU")
         if device is not None and t.device != device:

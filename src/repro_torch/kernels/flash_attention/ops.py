@@ -11,8 +11,14 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
 
     A CUDA tensor goes to the hand-written kernel, a CPU tensor to the
     plain torch version; there is no fallback between them.  Ragged
-    lengths need no padding: both mask past Skv themselves.
+    lengths need no padding: both mask past Skv themselves.  A DTensor is
+    refused on either device: the model hands each rank's local rows and
+    heads (``sharding.local_heads``).
     """
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if hasattr(t, "placements"):
+            raise TypeError(f"flash_attention: {name} is a DTensor; pass "
+                            "each rank's local tensor (sharding.local_heads)")
     if q.device.type == "cuda":
         return kernel.flash_attention_cuda(q, k, v, causal, window)
     if q.device.type != "cpu":

@@ -49,10 +49,10 @@ from repro_torch.data.synthetic import make_batch_specs
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import mesh_name, production_mesh
 from repro_torch.models.registry import get_config, list_archs
-from repro_torch.sharding import (batch_sharding, distribute_model,
-                                  distribute_tree, logical_to_mesh, make_plan,
-                                  step_layout)
-from repro_torch.sharding.plan import mesh_shape_of, sanitize_spec
+from repro_torch.sharding import (batch_sharding, distribute_cache,
+                                  distribute_model, distribute_tree,
+                                  make_plan, step_layout)
+from repro_torch.sharding.plan import mesh_shape_of
 
 
 #: Cells whose time loops (``models/ssm.py``) trace one step at a time on
@@ -194,38 +194,6 @@ def input_specs(arch: str, shape_name: str,
     return make_batch_specs(cfg, shape.seq_len, shape.global_batch, shape.kind)
 
 
-def _cache_sharding(cache, plan, mesh, batch_shardable: bool) -> Dict:
-    """Specs for the decode cache (the same nesting as the cache): ``k``,
-    ``v`` (L, B, S, Hkv, hd), ``ssm`` (L, B, d_inner, N), ``rwkv/wkv`` (L,
-    B, H, hd, hd), ``image_embeds`` and ``enc`` (B, T, d); anything else
-    of rank 2 or more (L, B, ...)."""
-    rules = plan.activation_rules
-    ba = "batch" if batch_shardable else None   # logical name, not mesh axes
-
-    def spec_for(name, leaf):
-        nd = leaf.dim()
-        if name in ("k", "v"):
-            dims = [None, ba, "kv_seq", "kv_heads", None]
-        elif name == "ssm":
-            dims = [None, ba, "mlp", None]
-        elif name.endswith("wkv"):
-            dims = [None, ba, None, None, None]
-        elif name in ("image_embeds", "enc"):
-            dims = [ba, None, None]
-        elif nd >= 2:
-            dims = [None, ba] + [None] * (nd - 2)
-        else:
-            dims = [None] * nd
-        spec = logical_to_mesh(dims[:nd], rules)
-        return sanitize_spec(spec, tuple(leaf.shape), mesh_shape_of(mesh))
-
-    def walk(tree, prefix):
-        return {k: (walk(v, f"{prefix}{k}/") if isinstance(v, dict)
-                    else spec_for(prefix + k, v)) for k, v in tree.items()}
-
-    return walk(cache, "")
-
-
 def count_params(named: Mapping[str, torch.Tensor]) -> int:
     return int(sum(math.prod(t.shape) for t in named.values()))
 
@@ -253,6 +221,12 @@ def _trace(model, cfg, shape, plan, mesh, batch_shardable, opt_kw):
     batch = input_specs(cfg.name, shape.name, cfg)
     batch = distribute_tree(
         batch, batch_sharding(batch, plan, mesh, batch_shardable), mesh)
+    if shape.kind == "decode":
+        # Laid out here, by the dry-run's batch_shardable: a cache made
+        # under the layout would shard its rows wherever they divide.
+        cache = distribute_cache(
+            model.init_cache(shape.global_batch, shape.seq_len), mesh,
+            plan.activation_rules, batch_shardable)
     counter = StepCounter()
     with step_layout(plan, mesh):
         if shape.kind == "train":
@@ -272,10 +246,6 @@ def _trace(model, cfg, shape, plan, mesh, batch_shardable, opt_kw):
             mflops = rl.model_flops(active_params(cfg, n_params), tokens,
                                     "inference")
         else:
-            cache = model.init_cache(shape.global_batch, shape.seq_len)
-            cache = distribute_tree(
-                cache, _cache_sharding(cache, plan, mesh, batch_shardable),
-                mesh)
             args = (params, cache, batch["tokens"])
             with torch.no_grad(), counter:
                 out = model.decode_step(cache, batch["tokens"])

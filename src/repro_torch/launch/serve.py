@@ -1,20 +1,38 @@
-"""Serving driver: continuous-batched generation on one device.
+"""Serving entry point: continuous-batched generation, the twin of
+``repro.launch.serve``.
+
+Inside a process group (one the caller has initialised, or one joined
+from ``torch.distributed.run``'s environment: ``launch.mesh.host_group``)
+it serves as the reference's ``serve_demo`` does, on a
+``make_host_mesh(1)`` of (data, model) over the group's ranks with
+``make_plan(fsdp=False)``: every rank draws the same whole weights from
+the seed and keeps its part (whole, on a model axis of 1), the slots lie
+over "data" (whole on every rank where they do not divide), every rank
+serves the same requests and returns the same outputs, and rank 0
+prints; NCCL on ``cuda`` (one card a rank), gloo on ``cpu``.  Without a
+group it serves on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 2 -m repro_torch.launch.serve --smoke --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.launch.mesh import host_group, make_host_mesh
 from repro_torch.models.registry import build_model, get_config
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.sharding import distribute_model, make_plan, step_layout
 
 
 def serve_demo(arch: str, smoke: bool = True, n_requests: int = 12,
@@ -26,11 +44,29 @@ def serve_demo(arch: str, smoke: bool = True, n_requests: int = 12,
     prompts the same numpy generator draws, as the reference's, a standard
     normal ``image_embeds`` (slots, n_image_tokens, d) for vlm or encoder
     output ``enc`` (slots, encoder_seq, d) for audio, which every slot
-    attends."""
+    attends.  Inside a process group it serves over its ranks (see the
+    module's docstring).  ``generated`` holds every request's tokens,
+    ``outputs`` the first 8 of the first three, as the reference's."""
     device = resolve_device(device)
+    with host_group(device) as rank_device:
+        mesh = None
+        if rank_device is not None:
+            mesh = make_host_mesh(1)
+            device = rank_device
+        return _serve(arch, smoke, n_requests, batch_slots, max_new, max_len,
+                      seed, device, mesh)
+
+
+def _serve(arch, smoke, n_requests, batch_slots, max_new, max_len, seed,
+           device, mesh):
     cfg = get_config(arch, smoke=smoke, dtype="float32",
                      param_dtype="float32")
     model = build_model(cfg, device=device, seed=seed)
+    layout = contextlib.nullcontext()
+    if mesh is not None:
+        plan = make_plan(fsdp=False)
+        distribute_model(model, plan, mesh)
+        layout = step_layout(plan, mesh)
     rng = np.random.default_rng(seed)
     engine = ServeEngine(model, max_len=max_len, batch_size=batch_slots)
     prompts = [rng.integers(0, cfg.vocab_size, size=rng.integers(4, 12))
@@ -45,7 +81,8 @@ def serve_demo(arch: str, smoke: bool = True, n_requests: int = 12,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    outs = engine.generate(prompts, max_new_tokens=max_new, extras=extras)
+    with layout:
+        outs = engine.generate(prompts, max_new_tokens=max_new, extras=extras)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
@@ -56,12 +93,18 @@ def serve_demo(arch: str, smoke: bool = True, n_requests: int = 12,
         "tok_per_s": total_tokens / max(dt, 1e-9),
         "seconds": dt,
         "device": str(device),
+        "ranks": 1 if mesh is None else mesh.size(),
         "outputs": [o.tolist()[:8] for o in outs[:3]],
+        "generated": [o.tolist() for o in outs],
     }
 
 
 def main():
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(
+        description="Serve on one device, or on every rank of a process "
+        "group: python -m torch.distributed.run --standalone "
+        "--nproc-per-node N -m repro_torch.launch.serve [--device cpu] "
+        "(NCCL on cuda, one card a rank; gloo on cpu).")
     ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=12)
@@ -71,9 +114,11 @@ def main():
     args = ap.parse_args()
     out = serve_demo(args.arch, smoke=args.smoke, n_requests=args.requests,
                      batch_slots=args.slots, device=args.device)
-    print(f"# served {out['requests']} requests, {out['tokens']} tokens, "
-          f"{out['tok_per_s']:.1f} tok/s on {out['device']}")
-    print(f"# sample outputs: {out['outputs']}")
+    if int(os.environ.get("RANK", 0)) == 0:
+        print(f"# served {out['requests']} requests, {out['tokens']} tokens, "
+              f"{out['tok_per_s']:.1f} tok/s on {out['device']} over "
+              f"{out['ranks']} rank(s)")
+        print(f"# sample outputs: {out['outputs']}")
 
 
 if __name__ == "__main__":

@@ -4,12 +4,15 @@ cross-attention, and single-token decode against a KV cache.
 Full-sequence attention (prefill) routes on ``cfg.attention_impl``:
 ``"kernel"`` goes through :func:`repro_torch.kernels.flash_attention.ops.
 flash_attention` (the hand-written kernel on a GPU), ``"plain"`` through
-:func:`_sdpa`, which materialises the scores.  Cross-attention and decode
-attend with plain tensor code whatever the route, as the reference does.
+:func:`_sdpa`, which materialises the scores; over DTensors both run on
+each device's own rows and heads (``sharding.local_heads``).
+Cross-attention and decode attend with plain tensor code whatever the
+route, as the reference does.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -71,7 +74,7 @@ def _project_qkv(params: Attention, x, cfg: ModelConfig):
     b, s, d = x.shape
 
     def proj(w, bias):
-        y = reshape(dot(x, w.reshape(d, -1)), b, s, *w.shape[1:])
+        y = reshape(dot(x, reshape(w, d, -1)), b, s, *w.shape[1:])
         if bias is not None:
             y = y + bias.float()
         return y.to(x.dtype)
@@ -84,7 +87,7 @@ def _out_proj(params: Attention, out, dtype):
     """The output projection, its sum over the heads completed on every
     device of a mesh (an all-reduce where the heads are sharded)."""
     b, s = out.shape[:2]
-    wo = params.wo.reshape(-1, params.wo.shape[-1])
+    wo = reshape(params.wo, -1, params.wo.shape[-1])
     y = dot(reshape(out, b, s, -1), wo)
     return shard(y.to(dtype), "batch", None, "embed")
 
@@ -145,8 +148,11 @@ def attention(params: Attention, x, cfg: ModelConfig, positions=None,
     k = shard(k, "batch", None, "kv_heads", None)
     v = shard(v, "batch", None, "kv_heads", None)
     if cfg.attention_impl == "kernel":
-        out = fa_ops.flash_attention(q, k, v, causal=causal,
-                                     window=cfg.sliding_window)
+        # The kernel takes plain tensors: over DTensors, each device's own
+        # rows and heads.
+        out = local_heads(functools.partial(
+            fa_ops.flash_attention, causal=causal, window=cfg.sliding_window),
+            (q, k, v))
     else:
         mask = _mask(s, s, causal, cfg.sliding_window, device=x.device)
         out = _sdpa(q, k, v, mask, cfg)
@@ -162,7 +168,7 @@ def cross_attention(params: Attention, x, kv_src, cfg: ModelConfig
     with bare products), and always :func:`_sdpa`."""
     def proj(src, w):
         b, t, d = src.shape
-        return reshape(dot(src, w.reshape(d, -1)), b, t, *w.shape[1:]
+        return reshape(dot(src, reshape(w, d, -1)), b, t, *w.shape[1:]
                        ).to(x.dtype)
 
     q = proj(x, params.wq)

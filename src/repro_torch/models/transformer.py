@@ -39,7 +39,8 @@ of ``window`` slots (:func:`_ring_decode_attention`, dense, moe and
 hybrid); the vlm and audio decoders attend through ``decode_attention``
 whatever the window, as the reference's.  Mamba and RWKV states are
 float32 and O(1) in the context length.  A decode step writes K, V and
-the recurrent states into the cache's tensors in place.
+the recurrent states into the cache's tensors in place (over a mesh, each
+rank its own part: ``sharding.put_rows``, ``sharding.assign``).
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ from repro_torch.models import layers
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding import local_heads, put_rows, shard
+from repro_torch.sharding import (assign, current_mesh, distribute_cache,
+                                  local_heads, put_rows, shard)
 from repro_torch.sharding.plan import STACKED
 
 F32 = torch.float32
@@ -231,6 +233,8 @@ class Model(nn.Module):
         return shard(logits, "batch", None, "vocab")
 
     def _embed(self, tokens):
+        """Token ids (B, S): a host array, a tensor, or a DTensor whose
+        rows lie over the mesh."""
         tokens = torch.as_tensor(tokens, device=self.device)
         x = layers.embed(self.embed.table, tokens, scale=self.cfg.embed_scale)
         return shard(x.to(self.cfg.activation_dtype()), "batch", None, "embed")
@@ -308,7 +312,10 @@ class Model(nn.Module):
         ``x_cm`` (L, B, d)}, all float32 zeros; for vlm ``image_embeds``
         (B, n_image_tokens, d), for audio the encoder's output ``enc`` (B,
         encoder_seq, d), zeros unless ``extras`` gives them (``extras``
-        replaces any entry)."""
+        replaces any entry).  Under an installed mesh (``sharding.
+        current_mesh``) the cache is laid out over it by ``sharding.
+        cache_sharding``, each rank keeping its own part of the whole
+        tensors (``extras`` the same on every rank)."""
         cfg = self.cfg
         dev = self.device
         dt = cfg.activation_dtype()
@@ -318,11 +325,11 @@ class Model(nn.Module):
             cache["rwkv"] = {
                 k: torch.zeros((n,) + s, dtype=F32, device=dev)
                 for k, s in ssm_mod.rwkv6_state_shapes(cfg, batch).items()}
-            return cache
-        shape = (n, batch, self.cache_len(max_len), cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
-        cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
-        cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
+        else:
+            shape = (n, batch, self.cache_len(max_len), cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
+            cache["v"] = torch.zeros(shape, dtype=dt, device=dev)
         if cfg.family == "hybrid":
             cache["ssm"] = torch.zeros(
                 (n,) + ssm_mod.mamba_state_shape(cfg, batch), dtype=F32,
@@ -335,7 +342,8 @@ class Model(nn.Module):
                                        dtype=dt, device=dev)
         if extras:
             cache.update(extras)
-        return cache
+        mesh = current_mesh()
+        return cache if mesh is None else distribute_cache(cache, mesh)
 
     # --------------------------------------------------------- decode step
     def decode_step(self, cache: Dict, tokens) -> Tuple:
@@ -379,7 +387,7 @@ class Model(nn.Module):
         if blk.ssm is not None:
             ssm_out, new_state = ssm_mod.mamba_decode(blk.ssm, a, ssm_state,
                                                       cfg)
-            ssm_state.copy_(new_state)
+            assign(ssm_state, new_state)
             x = x + 0.5 * (att + ssm_out)
         else:
             x = x + att
@@ -412,9 +420,9 @@ class Model(nn.Module):
             y2, new_cm = ssm_mod.rwkv6_channel_decode(blk.rwkv, b,
                                                       states["x_cm"][i])
             x = x + y2[:, None, :]
-            states["wkv"][i].copy_(new_t["wkv"])
-            states["x_tm"][i].copy_(new_t["x_tm"])
-            states["x_cm"][i].copy_(new_cm)
+            assign(states["wkv"][i], new_t["wkv"])
+            assign(states["x_tm"][i], new_t["x_tm"])
+            assign(states["x_cm"][i], new_cm)
         return x
 
 

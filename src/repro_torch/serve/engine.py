@@ -5,6 +5,14 @@ the KV cache.  ``generate`` is the host-side continuous-batching loop:
 finished sequences are replaced in place so the decode batch stays full
 (slot reuse).  The engine runs on its model's device; parameters live in
 the model, so no method takes them.
+
+Under a mesh that ``sharding.axis_rules`` installs (``launch.serve``
+inside a process group, the model laid out by ``distribute_model``) the
+engine serves over it: the batch rows (slots) and the cache lie over the
+"batch" rule's axes (whole on every rank where they do not divide), every
+rank runs the same host loop on the same requests, and each step's new
+tokens are gathered whole before they are read, so that every rank makes
+the same slot decisions and returns the same outputs.
 """
 
 from __future__ import annotations
@@ -15,7 +23,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import to_device
 from repro_torch.models.transformer import Model
+from repro_torch.sharding import current_mesh, distribute_rows, whole
+
+#: Host reads of the new tokens in this process: :meth:`ServeEngine.
+#: generate` adds one a step (the tokens of every slot together), the only
+#: time its loop waits for the device.
+TOKEN_READS = 0
 
 
 @dataclasses.dataclass
@@ -28,13 +43,28 @@ class ServeEngine:
     def device(self) -> torch.device:
         return self.model.device
 
+    def _rows(self, t):
+        """A whole batch-first tensor (the same on every rank) as the
+        model takes it: under a mesh, a DTensor of each rank's rows."""
+        mesh = current_mesh()
+        return t if mesh is None else distribute_rows(t, mesh)
+
+    def _tokens(self, arr) -> torch.Tensor:
+        """Host token ids (B, S) on the device, without a host sync, in
+        :meth:`_rows`' layout."""
+        return self._rows(to_device(arr, torch.int32, self.device))
+
     # ----------------------------------------------------------- prefill
     @torch.no_grad()
     def prefill(self, batch) -> torch.Tensor:
         """Full-sequence forward of ``batch`` -> logits (B, S, V) float32:
         ``tokens`` (B, S), with ``image_embeds`` (vlm) or ``audio_frames``
-        (audio); attention routes on ``cfg.attention_impl``."""
-        logits, _aux = self.model.forward(batch)
+        (audio), whole on every rank; attention routes on
+        ``cfg.attention_impl``.  Under a mesh the logits are a DTensor, its
+        rows where the batch's lie."""
+        logits, _aux = self.model.forward(
+            {k: self._rows(torch.as_tensor(v, device=self.device))
+             for k, v in batch.items()})
         return logits
 
     @torch.no_grad()
@@ -47,7 +77,8 @@ class ServeEngine:
         cache = self.model.init_cache(b, self.max_len, extras=extras)
         logits = None
         for t in range(s):
-            logits, cache = self.model.decode_step(cache, tokens[:, t:t + 1])
+            logits, cache = self.model.decode_step(
+                cache, self._rows(tokens[:, t:t + 1]))
         return logits, cache
 
     # ------------------------------------------------------------- step
@@ -63,7 +94,7 @@ class ServeEngine:
         entries need no clearing: the per-slot position mask (or, in a
         ring, the written-slot mask) hides them.  A slot's
         ``image_embeds`` or ``enc`` stay as they are, as the reference's."""
-        reset = torch.as_tensor(np.asarray(slot_mask, bool), device=self.device)
+        reset = to_device(np.asarray(slot_mask, bool), torch.bool, self.device)
         cache = dict(cache)
         cache["pos"] = torch.where(reset, torch.zeros_like(cache["pos"]),
                                    cache["pos"])
@@ -93,8 +124,11 @@ class ServeEngine:
         is reset and the next queued prompt streams in while the other
         slots keep decoding.  Sampling (``greedy=False``) draws from
         ``generator``, a ``torch.Generator`` on the model's device (seeded
-        0 when not given).
+        0 when not given), over the whole batch's logits: under a mesh
+        every rank draws the same tokens from its own generator seeded
+        alike, those of one process.
         """
+        global TOKEN_READS
         if not greedy and generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         queue = list(enumerate(prompts))
@@ -130,15 +164,16 @@ class ServeEngine:
                     feeding[s] = True
                 else:
                     step_tok[s, 0] = cur[s, 0]
-            logits, cache = self.serve_step(
-                cache, torch.as_tensor(step_tok, device=self.device))
+            logits, cache = self.serve_step(cache, self._tokens(step_tok))
             last = logits[:, -1]
             if greedy:
-                nxt = torch.argmax(last, dim=-1)
+                nxt = whole(torch.argmax(last, dim=-1))
             else:
-                nxt = torch.multinomial(torch.softmax(last.float(), dim=-1), 1,
-                                        generator=generator)[:, 0]
+                nxt = torch.multinomial(
+                    torch.softmax(whole(last).float(), dim=-1), 1,
+                    generator=generator)[:, 0]
             nxt = nxt.cpu().numpy()
+            TOKEN_READS += 1
             reset_mask = np.zeros(b, bool)
             for s in range(b):
                 rid = slot_req[s]

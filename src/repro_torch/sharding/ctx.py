@@ -272,7 +272,8 @@ def lookup(table, ids):
     its own vocabulary slice for its own batch rows (0 for ids outside the
     slice), and an all-reduce over the vocabulary's axes sums the slices;
     the result's rows are laid out over the "batch" rule's axes, and the
-    table's gradient is summed over the ranks that split them."""
+    table's gradient is summed over the ranks that split them.  Plain
+    ``ids`` are the whole batch, the same on every rank."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
@@ -291,8 +292,10 @@ def lookup(table, ids):
     (n, _), (lo, _) = compute_local_shape_and_global_offset(
         table.shape, mesh, vocab_pl)
     rows = local_part(table, vocab_pl, row_pl)
-    if isinstance(ids, DTensor):
-        ids = ids.redistribute(mesh, row_pl).to_local()
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    ids = ids.redistribute(mesh, row_pl).to_local()
     local = ids - lo
     inside = (local >= 0) & (local < n)
     out = rows[local.clamp(0, n - 1)] * inside[..., None].to(rows.dtype)
@@ -348,6 +351,24 @@ def put_rows(cache, idx, values, keep=None):
     ok = ok.reshape((-1,) + (1,) * (vals.dim() - 1))
     local[rows, slot] = torch.where(ok, vals.to(local.dtype),
                                     local[rows, slot])
+
+
+def assign(dst, src) -> None:
+    """``dst.copy_(src)``: ``src``'s values written into ``dst``'s own
+    storage.  Over a DTensor ``dst`` each rank writes its own part, from
+    ``src`` laid out as ``dst`` (a plain ``src`` is the whole tensor, the
+    same on every rank), so that the tensor stays the one the caller holds
+    (a cache's view included), in its layout."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(dst, DTensor):
+        dst.copy_(src)
+        return
+    mesh = dst.device_mesh
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    dst.to_local().copy_(src.redistribute(mesh, dst.placements).to_local())
 
 
 class _Constrain(torch.autograd.Function):

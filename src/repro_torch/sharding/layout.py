@@ -1,12 +1,14 @@
-"""Laying a model, its training state and its batches out over a mesh.
+"""Laying a model, its training state, its batches and its decode cache
+out over a mesh.
 
 One piece of code for every run that lays tensors out by a
 :class:`~repro_torch.sharding.plan.ShardingPlan`: the dry-run over a fake
-process group (``launch/dryrun.py``) and training over a real one
-(``launch/train.py``).  Each rank holds the whole tensor and keeps its
-own part of it (``src_data_rank=None``): nothing is sent, so every rank
-must hold the same values (weights drawn from one seed, a checkpoint
-read by every rank).
+process group (``launch/dryrun.py``), and training (``launch/train.py``)
+and serving (``launch/serve.py``, ``serve/engine.py``) over a real one.
+Each rank holds the whole tensor and keeps its own part of it
+(``src_data_rank=None``): nothing is sent, so every rank must hold the
+same values (weights drawn from one seed, a checkpoint read by every
+rank, the same requests).
 """
 
 from __future__ import annotations
@@ -16,8 +18,8 @@ from typing import Dict, Mapping
 
 import torch
 
-from repro_torch.sharding.ctx import (axis_rules, logical_to_mesh,
-                                      placements_for)
+from repro_torch.sharding.ctx import (axis_rules, current_rules,
+                                      logical_to_mesh, placements_for)
 from repro_torch.sharding.plan import (mesh_shape_of, param_partition_specs,
                                        sanitize_spec)
 
@@ -69,19 +71,71 @@ def distribute_model(model, plan, mesh) -> Dict[str, tuple]:
     return specs
 
 
+def rows_spec(shape, rules, mesh, batch_shardable: bool = True) -> tuple:
+    """The spec of a batch-first tensor of ``shape``: its rows over the
+    "batch" rule's axes when they divide, the rest whole."""
+    ba = "batch" if batch_shardable else None   # logical name, not mesh axes
+    spec = logical_to_mesh([ba] + [None] * (len(shape) - 1), rules)
+    return sanitize_spec(spec, tuple(shape), mesh_shape_of(mesh))
+
+
 def batch_sharding(specs: Mapping[str, torch.Tensor], plan, mesh,
                    batch_shardable: bool = True) -> Dict[str, tuple]:
     """A spec for each batch entry (anything with the entry's global
-    ``shape``): the batch dimension over the data axes when it divides,
-    the rest whole."""
+    ``shape``): :func:`rows_spec` by the plan's rules."""
+    return {name: rows_spec(leaf.shape, plan.activation_rules, mesh,
+                            batch_shardable)
+            for name, leaf in specs.items()}
+
+
+def distribute_rows(t: torch.Tensor, mesh):
+    """``t`` (batch first: the whole batch, the same on every rank) laid
+    out by :func:`rows_spec` under the installed rules, each rank keeping
+    its own rows; a DTensor as it is."""
+    if hasattr(t, "placements"):
+        return t
+    return distribute(t, rows_spec(t.shape, current_rules(), mesh), mesh)
+
+
+def cache_sharding(cache, rules, mesh, batch_shardable: bool = True) -> Dict:
+    """Specs for a decode cache (the same nesting as the cache): ``k``,
+    ``v`` (L, B, S, Hkv, hd), ``ssm`` (L, B, d_inner, N), ``rwkv/wkv`` (L,
+    B, H, hd, hd), ``image_embeds`` and ``enc`` (B, T, d); anything else
+    of rank 2 or more (L, B, ...); ``pos`` (B,) whole.  ``mesh`` is a
+    ``DeviceMesh`` or an {axis: size} dict."""
     ba = "batch" if batch_shardable else None   # logical name, not mesh axes
-    out = {}
-    for name, leaf in specs.items():
-        shape = tuple(leaf.shape)
-        dims = [ba] + [None] * (len(shape) - 1)
-        spec = logical_to_mesh(dims, plan.activation_rules)
-        out[name] = sanitize_spec(spec, shape, mesh_shape_of(mesh))
-    return out
+
+    def spec_for(name, leaf):
+        nd = leaf.dim()
+        if name in ("k", "v"):
+            dims = [None, ba, "kv_seq", "kv_heads", None]
+        elif name == "ssm":
+            dims = [None, ba, "mlp", None]
+        elif name.endswith("wkv"):
+            dims = [None, ba, None, None, None]
+        elif name in ("image_embeds", "enc"):
+            dims = [ba, None, None]
+        elif nd >= 2:
+            dims = [None, ba] + [None] * (nd - 2)
+        else:
+            dims = [None] * nd
+        spec = logical_to_mesh(dims[:nd], rules)
+        return sanitize_spec(spec, tuple(leaf.shape), mesh_shape_of(mesh))
+
+    def walk(tree, prefix):
+        return {k: (walk(v, f"{prefix}{k}/") if isinstance(v, dict)
+                    else spec_for(prefix + k, v)) for k, v in tree.items()}
+
+    return walk(cache, "")
+
+
+def distribute_cache(cache, mesh, rules=None, batch_shardable: bool = True):
+    """A decode cache (whole, the same on every rank) laid out over
+    ``mesh`` by :func:`cache_sharding` (the installed rules unless
+    ``rules`` is given), each rank keeping its own part."""
+    return distribute_tree(cache, cache_sharding(
+        cache, current_rules() if rules is None else rules, mesh,
+        batch_shardable), mesh)
 
 
 @contextlib.contextmanager

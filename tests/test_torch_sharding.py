@@ -26,12 +26,11 @@ from repro.models.registry import build_model as jbuild  # noqa: E402
 from repro.models.registry import get_config as jget  # noqa: E402
 from repro.sharding import ctx as jctx  # noqa: E402
 from repro.sharding import plan as jplan  # noqa: E402
-from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,  # noqa: E402
                                      production_mesh)
 from repro_torch.models.registry import get_config, list_archs  # noqa: E402
 from repro_torch.models.transformer import STACKED, Model  # noqa: E402
-from repro_torch.sharding import ctx, plan  # noqa: E402
+from repro_torch.sharding import ctx, layout, plan  # noqa: E402
 
 MESHES = {"16x16": {"data": 16, "model": 16},
           "2x16x16": {"pod": 2, "data": 16, "model": 16}}
@@ -144,8 +143,8 @@ def test_cache_specs_match(jdry, monkeypatch, arch, shape_name):
     want = jdry._cache_sharding(jcache, jp, SimpleNamespace(shape=ms),
                                 shardable)
     cache = Model(cfg, "meta").init_cache(shape.global_batch, shape.seq_len)
-    got = dryrun._cache_sharding(cache, plan.make_plan(
-        shard_kv_seq=not shardable), ms, shardable)
+    got = layout.cache_sharding(cache, plan.make_plan(
+        shard_kv_seq=not shardable).activation_rules, ms, shardable)
 
     def walk(g, w, t):
         assert set(g) == set(w)
@@ -244,3 +243,34 @@ def test_sharded_loss_matches_the_plain():
         port = s.getsockname()[1]
     mp.spawn(_sharded_loss_rank, args=(port,), nprocs=4)
     assert not dist.is_initialized()
+
+
+@pytest.fixture(scope="module")
+def plain_ids(tmp_path_factory):
+    """Each of two gloo ranks' readings of ``torch_mesh_ranks.
+    plain_ids_rank`` on a (2, 1) mesh."""
+    import json
+
+    import torch_mesh_ranks as ranks
+
+    out = tmp_path_factory.mktemp("plain_ids")
+    ranks.spawn(ranks.plain_ids_rank, 2, str(out))
+    assert not dist.is_initialized()
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+def test_lookup_takes_plain_ids_as_the_whole_batch(plain_ids):
+    """Plain (4, 3) ids over a table laid out on a (2, 1) mesh: a (4, 3, 8)
+    DTensor equal to ``table[ids]`` (the ids once counted as each rank's
+    rows, a global batch of 8)."""
+    for r in plain_ids:
+        assert r["lookup_shape"] == [4, 3, 8]
+        assert r["lookup_equal"]
+
+
+def test_put_rows_takes_a_plain_index_as_the_whole_batch(plain_ids):
+    """A plain index, values and ``keep`` written into a cache whose rows
+    lie over the (2, 1) mesh: the cache equals the plain write, with an
+    index past the cache and a row kept out."""
+    for r in plain_ids:
+        assert r["put_rows_equal"] == [True, True]

@@ -20,12 +20,28 @@ class Killed(Exception):
     """Raised by a run's checkpoint manager right after its first save."""
 
 
-def spawn(fn, world: int, *args) -> None:
-    """``fn(rank, world, port, *args)`` on ``world`` gloo ranks."""
+def spawn(fn, world: int, *args, join: bool = True):
+    """``fn(rank, world, port, *args)`` on ``world`` gloo ranks; with
+    ``join`` false, started and returned (``torch.multiprocessing``'s
+    process context) without waiting."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    mp.spawn(fn, args=(world, port) + args, nprocs=world)
+    return mp.spawn(fn, args=(world, port) + args, nprocs=world, join=join)
+
+
+def join_all(contexts) -> None:
+    """Wait for every rank of each started :func:`spawn`, raising as
+    ``spawn`` does; on a failure the ranks still running are ended."""
+    try:
+        for ctx in contexts:
+            while not ctx.join():
+                pass
+    finally:
+        for ctx in contexts:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
 
 
 @contextlib.contextmanager
@@ -203,3 +219,284 @@ def helpers_rank(rank, world, port):
                 for i, (gw, gg) in enumerate(zip(want, got)):
                     err = float((gg - gw).abs().max() / gw.abs().max())
                     assert err <= 1e-5, f"{name} gradient {i}: {err:.3e}"
+
+
+# ------------------------------------------------------------------ serving
+#: Cross blocks' gate in the serving checks: at its initial 0,
+#: ``tanh(0)`` hides the cross-attention from every output.
+GATE = 0.5
+#: The serving checks' slots, cache length, requests, new tokens, and the
+#: manual decode run's steps and the step after which slot 1 is reset (the
+#: smoke configs' 16-slot rings wrap).
+SLOTS, MAX_LEN, REQUESTS, NEW_TOKENS = 4, 32, 7, 5
+STEPS, RESET_AFTER = 20, 8
+
+
+def serve_model(arch, seed=0, npz=None):
+    """The smoke config of ``arch`` in float32 with ``attention_impl=
+    "kernel"`` (the prefill through the flash wrapper), on the CPU: weights
+    drawn from ``seed``, or the reference's tree in ``npz`` (keys joined by
+    "/") carried across by ``convert``; every cross block's gate at
+    :data:`GATE`."""
+    from repro_torch import convert
+    from repro_torch.models.registry import build_model, get_config
+
+    cfg = get_config(arch, smoke=True, dtype="float32", param_dtype="float32",
+                     attention_impl="kernel")
+    if npz is None:
+        model = build_model(cfg, device="cpu", seed=seed)
+    else:
+        tree = {}
+        with np.load(npz) as f:
+            for key in f.files:
+                *path, leaf = key.split("/")
+                node = tree
+                for k in path:
+                    node = node.setdefault(k, {})
+                node[leaf] = f[key]
+        model = convert.model_params_from_numpy(tree, cfg, device="cpu")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".gate"):
+                p.fill_(GATE)
+    return model
+
+
+def serve_inputs(cfg, seed=0):
+    """Prompts of 2-9 tokens, the decode run's tokens, the decode cache's
+    extras (vlm ``image_embeds``, audio ``enc``) and a prefill batch of
+    (SLOTS, 12) tokens with its embeddings, all from numpy seed ``seed``."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=rng.integers(2, 10))
+               .astype(np.int32) for _ in range(REQUESTS)]
+    steps = rng.integers(0, cfg.vocab_size, (STEPS, SLOTS, 1)).astype(np.int32)
+    extras, batch = None, {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SLOTS, 12)).astype(np.int32))}
+    key, seq = {"vlm": ("image_embeds", cfg.n_image_tokens),
+                "audio": ("enc", cfg.encoder_seq)}.get(cfg.family, (None, 0))
+    if key is not None:
+        extras = {key: torch.as_tensor(
+            rng.normal(size=(SLOTS, seq, cfg.d_model)), dtype=torch.float32)}
+        batch["audio_frames" if key == "enc" else key] = torch.as_tensor(
+            rng.normal(size=(SLOTS, seq, cfg.d_model)), dtype=torch.float32)
+    return prompts, steps, extras, batch
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def _greedy_gap(model):
+    """Wrap ``model.decode_step``: the least gap between the top two
+    logits of a step, over the largest |logit|, kept in the returned
+    list's one entry."""
+    from repro_torch.sharding import whole
+
+    least, step = [np.inf], model.decode_step
+
+    def recorded(cache, tokens):
+        logits, cache = step(cache, tokens)
+        last = whole(logits[:, -1])
+        top2 = torch.topk(last, 2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]) / last.abs().max()
+        least[0] = min(least[0], float(gap.min()))
+        return logits, cache
+
+    model.decode_step = recorded
+    return least
+
+
+def serve_case(arch, mesh, plan, seed=0, npz=None):
+    """One family's serving checks over ``mesh``, each against the same
+    calls on a one-process model holding the same weights; returns the
+    readings (nothing is asserted here: the test does)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import (cache_sharding, current_rules,
+                                      distribute_model, placements_for,
+                                      step_layout, whole)
+
+    plain = serve_model(arch, seed, npz)
+    sharded = serve_model(arch, seed, npz)
+    distribute_model(sharded, plan, mesh)
+    cfg = plain.cfg
+    prompts, steps, extras, batch = serve_inputs(cfg, seed)
+    one = ServeEngine(plain, max_len=MAX_LEN, batch_size=SLOTS)
+    eng = ServeEngine(sharded, max_len=MAX_LEN, batch_size=SLOTS)
+    out = {}
+    with step_layout(plan, mesh):
+        gap = _greedy_gap(sharded)
+        got = eng.generate(prompts, NEW_TOKENS, extras=extras)
+        del sharded.decode_step
+    want = one.generate(prompts, NEW_TOKENS, extras=extras)
+    out["tokens"] = [g.tolist() for g in got]
+    out["want_tokens"] = [w.tolist() for w in want]
+    out["gap"] = gap[0]
+
+    # Sampled tokens: each side's generator seeded alike.
+    with step_layout(plan, mesh):
+        got = eng.generate(prompts, NEW_TOKENS, greedy=False, extras=extras,
+                           generator=torch.Generator().manual_seed(7))
+    want = one.generate(prompts, NEW_TOKENS, greedy=False, extras=extras,
+                        generator=torch.Generator().manual_seed(7))
+    out["sampled_equal"] = all(np.array_equal(a, b) for a, b in
+                               zip(got, want))
+
+    # Decode steps by hand, slot 1 reset midway: logits each step, every
+    # state after, and the cache's own tensors written in place.
+    logit_err, own, laid_out = 0.0, True, True
+    cache_p = plain.init_cache(SLOTS, MAX_LEN, extras=extras)
+    with step_layout(plan, mesh):
+        cache = sharded.init_cache(SLOTS, MAX_LEN, extras=extras)
+        specs = cache_sharding(cache, current_rules(), mesh)
+        for i, toks in enumerate(steps):
+            before = dict(_leaves(cache))
+            logits, cache = eng.serve_step(cache, eng._tokens(toks))
+            lp, cache_p = one.serve_step(cache_p, torch.as_tensor(toks))
+            logit_err = max(logit_err, _rel(whole(logits), lp))
+            for k, v in _leaves(cache):
+                if k != "pos":
+                    own &= v is before[k]
+            if i == RESET_AFTER:
+                mask = np.arange(SLOTS) == 1
+                cache = eng.reset_slots(cache, mask)
+                cache_p = one.reset_slots(cache_p, mask)
+        spec = dict(_leaves(specs))
+        for k, v in _leaves(cache):
+            laid_out &= list(v.placements) == placements_for(spec[k], mesh)
+        states = {k: whole(v) for k, v in _leaves(cache)}
+    want_states = dict(_leaves(cache_p))
+    out["logit_err"] = logit_err
+    out["state_err"] = max((_rel(states[k], v), k) for k, v in
+                           want_states.items() if v.abs().max() > 0)
+    out["pos_equal"] = bool(torch.equal(states["pos"], want_states["pos"]))
+    out["own_tensors"], out["laid_out"] = own, laid_out
+
+    # The flash prefill: the wrapper sees plain tensors alone (it refuses
+    # DTensors), once a self block (and an encoder block).
+    calls = []
+    flash = fa_ops.flash_attention
+
+    def counted(q, k, v, **kw):
+        calls.append(type(q).__name__)
+        return flash(q, k, v, **kw)
+
+    fa_ops.flash_attention = counted
+    try:
+        with step_layout(plan, mesh):
+            logits = whole(eng.prefill(batch))
+    finally:
+        fa_ops.flash_attention = flash
+    out["prefill_err"] = _rel(logits, one.prefill(batch))
+    # The sequential prefill through decode steps.
+    with step_layout(plan, mesh):
+        logits, cache = eng.prefill_into_cache(batch["tokens"], extras)
+        logits, pos = whole(logits), whole(cache["pos"])
+    want, cache_p = one.prefill_into_cache(batch["tokens"], extras)
+    out["prefill_cache_err"] = _rel(logits, want)
+    out["prefill_cache_pos"] = bool(torch.equal(pos, cache_p["pos"]))
+    out["flash_calls"] = calls
+    out["self_blocks"] = (len(plain.blocks)
+                          + len(getattr(plain, "encoder", ())))
+    out["attention_free"] = cfg.family == "ssm"
+    return out
+
+
+def plain_ids_rank(rank, world, port, out_dir):
+    """``lookup`` and ``put_rows`` with plain ids and indices (the whole
+    batch, the same on every rank) against a table and a cache laid out
+    over a (``world``, 1) mesh, each against the plain call; writes the
+    readings to ``rank<r>.json`` in ``out_dir``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.sharding import axis_rules, lookup, make_plan, put_rows
+
+    g = torch.Generator().manual_seed(24)
+    table = torch.randn(12, 8, generator=g)
+    ids = torch.randint(0, 12, (4, 3), generator=g)
+    cache = torch.randn(4, 6, 3, generator=g)
+    idx = torch.tensor([5, 0, 2, 7])         # 7 is past the cache: no write
+    vals = torch.randn(4, 3, generator=g)
+    keep = torch.tensor([True, True, False, True])
+    out = {}
+    with gloo(rank, world, port):
+        mesh = init_device_mesh("cpu", (world, 1),
+                                mesh_dim_names=("data", "model"))
+        with axis_rules(make_plan(fsdp=False).activation_rules, mesh):
+            got = lookup(distribute_tensor(table, mesh,
+                                           [Replicate(), Shard(0)],
+                                           src_data_rank=None), ids)
+            out["lookup_shape"] = list(got.shape)
+            out["lookup_equal"] = (tuple(got.shape) == tuple(ids.shape) + (8,)
+                                   and bool(torch.equal(got.full_tensor(),
+                                                        table[ids])))
+            laid = distribute_tensor(cache, mesh, [Shard(0), Replicate()],
+                                     src_data_rank=None)
+            want = cache.clone()
+            for k in (idx < 6, keep):
+                put_rows(laid, idx.clamp(max=5), vals, keep=k)
+                put_rows(want, idx.clamp(max=5), vals, keep=k)
+                out.setdefault("put_rows_equal", []).append(
+                    bool(torch.equal(laid.full_tensor(), want)))
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def refusals(mesh):
+    """The messages of the flash wrapper and of a kernel's input check
+    handed a DTensor ("" where one did not refuse it)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels._build import check_inputs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q = distribute_tensor(torch.zeros(2, 4, 2, 8), mesh,
+                          [Shard(0), Replicate()], src_data_rank=None)
+    out = []
+    for fn in (lambda: fa_ops.flash_attention(q, q, q),
+               lambda: check_inputs("kernel", (torch.float32,), q=q)):
+        try:
+            fn()
+            out.append("")
+        except TypeError as e:
+            out.append(str(e))
+    return out
+
+
+def serve_rank(rank, world, port, cases, ref, out_dir):
+    """The serving checks on one of ``world`` gloo ranks over
+    ``make_host_mesh(1)`` with ``make_plan(fsdp=False)``: every family of
+    ``cases`` ({name: (arch, seed)}), ``serve_demo`` joined to the group,
+    with ``ref`` (the reference's weights as an ``.npz`` file, and the
+    arch) the dense model on the reference's weights, and a DTensor handed
+    to the flash wrapper and a kernel's input check.  Writes
+    ``rank<r>.json`` in ``out_dir``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve_demo
+    from repro_torch.sharding import make_plan
+
+    with gloo(rank, world, port):
+        mesh = make_host_mesh(1)
+        plan = make_plan(fsdp=False)
+        out = {name: serve_case(arch, mesh, plan, seed)
+               for name, (arch, seed) in cases.items()}
+        demo = serve_demo("qwen1.5-0.5b", smoke=True, device="cpu")
+        out["serve_demo"] = {"generated": demo["generated"],
+                             "ranks": demo["ranks"]}
+        if ref is not None:
+            npz, arch = ref
+            out["reference"] = serve_case(arch, mesh, plan, npz=npz)
+        out["refused"] = refusals(mesh)
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
