@@ -3875,21 +3875,26 @@ def _serve_mesh(dev, kernel_mods, phase10):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import serve_demo
     from repro_torch.models.registry import build_model, get_config
+    from repro_torch.obs import trace as obs_trace
     from repro_torch.serve import engine as engine_mod
     from repro_torch.sharding import distribute_model, make_plan, step_layout
 
     plan = make_plan(fsdp=False)
     with _nccl_rank():
-        # (a) serve_demo joined to the group.
+        # (a) serve_demo joined to the group, its token reads counted on
+        # its traced serve.generate spans.
         box = {}
         for mod in kernel_mods.values():
             mod.LAUNCHES = 0
-        reads0 = engine_mod.TOKEN_READS
         torch.cuda.synchronize()
+        obs_trace.enable()
         with _ServeClock() as clock:
             seen = _audited(lambda: box.setdefault(
                 "out", serve_demo(SERVE_ARCH, smoke=False, device=dev)))
-        reads = engine_mod.TOKEN_READS - reads0
+        obs_trace.disable()
+        reads = sum(e["args"]["token_reads"] for e in obs_trace.events()
+                    if e["name"] == "serve.generate")
+        obs_trace.clear()
         demo_launches = {n: m.LAUNCHES for n, m in kernel_mods.items()}
         out, want = box["out"], phase10["demo"]
         steps, want_steps = clock.step_ms(), phase10["demo_step_ms"]

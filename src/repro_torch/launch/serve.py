@@ -16,6 +16,11 @@ group it serves on one device.
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m torch.distributed.run --standalone \\
         --nproc-per-node 2 -m repro_torch.launch.serve --smoke --device cpu
+
+``--trace PATH`` records the run's spans (``repro_torch.obs.trace``: each
+``generate`` call, decode step and its parts, and request) and writes
+them to PATH as a Chrome trace, to open in https://ui.perfetto.dev;
+inside a group rank 0 writes PATH and rank r ``PATH.rank<r>``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.launch.mesh import host_group, make_host_mesh
 from repro_torch.models.registry import build_model, get_config
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.sharding import distribute_model, make_plan, step_layout
 
@@ -99,7 +105,7 @@ def _serve(arch, smoke, n_requests, batch_slots, max_new, max_len, seed,
     }
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Serve on one device, or on every rank of a process "
         "group: python -m torch.distributed.run --standalone "
@@ -111,10 +117,21 @@ def main():
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
-    args = ap.parse_args()
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the run's spans to PATH as a Chrome trace "
+                    "(Perfetto)")
+    args = ap.parse_args(argv)
+    rank = int(os.environ.get("RANK", 0))
+    if args.trace:
+        obs_trace.enable()
     out = serve_demo(args.arch, smoke=args.smoke, n_requests=args.requests,
                      batch_slots=args.slots, device=args.device)
-    if int(os.environ.get("RANK", 0)) == 0:
+    if args.trace:
+        obs_trace.disable()
+        path = obs_trace.save(args.trace if rank == 0
+                              else f"{args.trace}.rank{rank}")
+        print(f"# spans written to {path}")
+    if rank == 0:
         print(f"# served {out['requests']} requests, {out['tokens']} tokens, "
               f"{out['tok_per_s']:.1f} tok/s on {out['device']} over "
               f"{out['ranks']} rank(s)")

@@ -36,6 +36,7 @@ from torch import nn
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dot, param, truncated_normal_
+from repro_torch.obs import trace as obs_trace
 from repro_torch.sharding import batch_local, reshape, shard
 
 F32 = torch.float32
@@ -268,11 +269,13 @@ def _rwkv_scan(params: RWKV6, r, k, v, w, h: int):
 
 
 def rwkv6_time_mix(params: RWKV6, x, cfg: ModelConfig):
-    """Full-sequence wkv6.  x: (B, S, d) -> (B, S, d)."""
+    """Full-sequence wkv6.  x: (B, S, d) -> (B, S, d); the time loop is
+    traced as one ``ssm.rwkv_scan`` span."""
     h = cfg.resolved_ssm_heads
     x_prev = token_shift(x)
     r, k, v, g, w = _rwkv_time_inputs(params, x.float(), x_prev.float())
-    out = _scan_rows(_rwkv_scan, params, ("u_bonus",), (r, k, v, w), h)
+    with obs_trace.span("ssm.rwkv_scan"):
+        out = _scan_rows(_rwkv_scan, params, ("u_bonus",), (r, k, v, w), h)
     out = out * params.ln_x * F.silu(g)
     out = shard(out.to(x.dtype), "batch", None, "mlp")
     return dot(out, params.w_out).to(x.dtype)

@@ -25,12 +25,8 @@ import torch
 
 from repro_torch import to_device
 from repro_torch.models.transformer import Model
+from repro_torch.obs import trace as obs_trace
 from repro_torch.sharding import current_mesh, distribute_rows, whole
-
-#: Host reads of the new tokens in this process: :meth:`ServeEngine.
-#: generate` adds one a step (the tokens of every slot together), the only
-#: time its loop waits for the device.
-TOKEN_READS = 0
 
 
 @dataclasses.dataclass
@@ -62,9 +58,10 @@ class ServeEngine:
         (audio), whole on every rank; attention routes on
         ``cfg.attention_impl``.  Under a mesh the logits are a DTensor, its
         rows where the batch's lie."""
-        logits, _aux = self.model.forward(
-            {k: self._rows(torch.as_tensor(v, device=self.device))
-             for k, v in batch.items()})
+        with obs_trace.span("serve.prefill"):
+            logits, _aux = self.model.forward(
+                {k: self._rows(torch.as_tensor(v, device=self.device))
+                 for k, v in batch.items()})
         return logits
 
     @torch.no_grad()
@@ -127,66 +124,110 @@ class ServeEngine:
         0 when not given), over the whole batch's logits: under a mesh
         every rank draws the same tokens from its own generator seeded
         alike, those of one process.
+
+        Traced (:mod:`repro_torch.obs.trace`): one ``serve.generate`` span
+        a call, its args ``steps``, ``token_reads`` (one a step, the only
+        time the loop waits for the device), ``slot_resets`` (slots reset
+        for a new request) and ``requests``; one ``serve.step`` a decode
+        step, with the children ``serve.feed``, ``serve.decode``,
+        ``serve.token_read``, ``serve.bookkeep`` and, on steps that reset a
+        slot, ``serve.reset_slots``; and one ``serve.request`` a request,
+        from the call's start (its enqueue) to the read of its last token,
+        its args ``rid``, ``call`` (the ``serve.generate`` span's id),
+        ``slot``, ``prompt_len``, ``new_tokens``, ``slot_ns`` (when it took
+        its slot) and ``first_token_ns``, stamped with the step's one
+        clock read after its token read.
         """
-        global TOKEN_READS
         if not greedy and generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        queue = list(enumerate(prompts))
-        results: Dict[int, List[int]] = {}
-        b = self.batch_size
-        cache = self.model.init_cache(b, self.max_len, extras=extras)
-        slot_req = [-1] * b                   # request id per slot
-        slot_left = [0] * b                   # generation budget left
-        feed: List[List[int]] = [[] for _ in range(b)]
-        cur = np.zeros((b, 1), np.int32)
+        tracing = obs_trace.enabled()
+        with obs_trace.span("serve.generate") as call:
+            t_now = obs_trace.now_ns() if tracing else 0
+            t_call = t_now
+            queue = list(enumerate(prompts))
+            results: Dict[int, List[int]] = {}
+            # rid -> [slot, prompt_len, slot_ns, first_token_ns], traced.
+            reqs: Dict[int, List[int]] = {}
+            b = self.batch_size
+            cache = self.model.init_cache(b, self.max_len, extras=extras)
+            slot_req = [-1] * b               # request id per slot
+            slot_left = [0] * b               # generation budget left
+            feed: List[List[int]] = [[] for _ in range(b)]
+            cur = np.zeros((b, 1), np.int32)
+            steps = token_reads = slot_resets = 0
 
-        def assign(slot: int) -> bool:
-            if not queue:
-                slot_req[slot] = -1
-                feed[slot] = []
-                return False
-            rid, prompt = queue.pop(0)
-            slot_req[slot] = rid
-            slot_left[slot] = max_new_tokens
-            results[rid] = []
-            feed[slot] = [int(t) for t in prompt]
-            return True
+            def assign(slot: int) -> bool:
+                if not queue:
+                    slot_req[slot] = -1
+                    feed[slot] = []
+                    return False
+                rid, prompt = queue.pop(0)
+                slot_req[slot] = rid
+                slot_left[slot] = max_new_tokens
+                results[rid] = []
+                feed[slot] = [int(t) for t in prompt]
+                if tracing:
+                    reqs[rid] = [slot, len(feed[slot]), t_now, 0]
+                return True
 
-        for s in range(b):
-            assign(s)
-
-        while any(r >= 0 for r in slot_req):
-            step_tok = np.zeros((b, 1), np.int32)
-            feeding = [False] * b
             for s in range(b):
-                if feed[s]:
-                    step_tok[s, 0] = feed[s].pop(0)
-                    feeding[s] = True
-                else:
-                    step_tok[s, 0] = cur[s, 0]
-            logits, cache = self.serve_step(cache, self._tokens(step_tok))
-            last = logits[:, -1]
-            if greedy:
-                nxt = whole(torch.argmax(last, dim=-1))
-            else:
-                nxt = torch.multinomial(
-                    torch.softmax(whole(last).float(), dim=-1), 1,
-                    generator=generator)[:, 0]
-            nxt = nxt.cpu().numpy()
-            TOKEN_READS += 1
-            reset_mask = np.zeros(b, bool)
-            for s in range(b):
-                rid = slot_req[s]
-                if rid < 0:
-                    continue
-                if feeding[s] and feed[s]:
-                    continue                   # still streaming the prompt
-                results[rid].append(int(nxt[s]))
-                slot_left[s] -= 1
-                if slot_left[s] <= 0 or int(nxt[s]) == eos_id:
-                    if assign(s):
-                        reset_mask[s] = True   # new request takes the slot
-            if reset_mask.any():
-                cache = self.reset_slots(cache, reset_mask)
-            cur = nxt[:, None].astype(np.int32)
+                assign(s)
+
+            while any(r >= 0 for r in slot_req):
+                with obs_trace.span("serve.step"):
+                    with obs_trace.span("serve.feed"):
+                        step_tok = np.zeros((b, 1), np.int32)
+                        feeding = [False] * b
+                        for s in range(b):
+                            if feed[s]:
+                                step_tok[s, 0] = feed[s].pop(0)
+                                feeding[s] = True
+                            else:
+                                step_tok[s, 0] = cur[s, 0]
+                        tokens = self._tokens(step_tok)
+                    with obs_trace.span("serve.decode"):
+                        logits, cache = self.serve_step(cache, tokens)
+                    with obs_trace.span("serve.token_read"):
+                        last = logits[:, -1]
+                        if greedy:
+                            nxt = whole(torch.argmax(last, dim=-1))
+                        else:
+                            nxt = torch.multinomial(
+                                torch.softmax(whole(last).float(), dim=-1),
+                                1, generator=generator)[:, 0]
+                        nxt = nxt.cpu().numpy()
+                        token_reads += 1
+                        if tracing:
+                            t_now = obs_trace.now_ns()
+                    steps += 1
+                    with obs_trace.span("serve.bookkeep"):
+                        reset_mask = np.zeros(b, bool)
+                        for s in range(b):
+                            rid = slot_req[s]
+                            if rid < 0:
+                                continue
+                            if feeding[s] and feed[s]:
+                                continue       # still streaming the prompt
+                            out = results[rid]
+                            out.append(int(nxt[s]))
+                            if tracing and len(out) == 1:
+                                reqs[rid][3] = t_now
+                            slot_left[s] -= 1
+                            if slot_left[s] <= 0 or int(nxt[s]) == eos_id:
+                                if tracing:
+                                    slot, plen, t_slot, t_first = reqs[rid]
+                                    obs_trace.record(
+                                        "serve.request", t_call, t_now,
+                                        rid=rid, call=call.id, slot=slot,
+                                        prompt_len=plen, new_tokens=len(out),
+                                        slot_ns=t_slot, first_token_ns=t_first)
+                                if assign(s):
+                                    reset_mask[s] = True  # new request
+                    if reset_mask.any():
+                        with obs_trace.span("serve.reset_slots"):
+                            cache = self.reset_slots(cache, reset_mask)
+                        slot_resets += int(reset_mask.sum())
+                    cur = nxt[:, None].astype(np.int32)
+            call.set(steps=steps, token_reads=token_reads,
+                     slot_resets=slot_resets, requests=len(results))
         return [np.array(results[i]) for i in sorted(results)]

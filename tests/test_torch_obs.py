@@ -1,10 +1,13 @@
 """The port's observability glue against the reference's, on the CPU:
 ``repro_torch.obs.{trace,metrics,accuracy,telemetry}``.
 
-* span tracing records the reference's Chrome event format, a disabled
-  span records nothing, each span shows as a ``record_function`` in a
-  ``torch.profiler`` capture, and ``dispatch_cost`` records a call's cost
-  as ``<name>.cost``; the port's runners carry the reference's span
+* span tracing records the reference's Chrome event format on the
+  profiler's clock, with ids and parents that nest; a disabled span
+  records nothing and opens no profiler range, each enabled span shows as
+  a ``record_function`` in a ``torch.profiler`` capture, ``record``
+  writes a span after the fact, ``idle_by_span`` splits idle time by the
+  innermost span, and ``dispatch_cost`` records a call's cost as
+  ``<name>.cost``; the port's runners carry the reference's span
   names (``device_sim.commit``, ``.dispatch``, ``.checkpoint``,
   ``.stats``);
 * ``TelemetryLog`` / ``AppTelemetryLog`` behave as the reference's;
@@ -53,8 +56,15 @@ def _trace_off():
 
 # ----------------------------------------------------------- span tracing
 def test_disabled_span_is_a_noop():
-    with ttrace.span("nothing", q=1):
-        pass
+    """Nothing recorded, one shared no-op context, no profiler range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    assert ttrace.span("a") is ttrace.span("b", q=2)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with ttrace.span("nothing", q=1) as sp:
+            sp.set(x=1)
+            torch.ones(4).sum()
+    assert "nothing" not in {e.key for e in prof.key_averages()}
     ttrace.instant("nothing.cost", x=1)
     assert ttrace.events() == []
     assert ttrace.dispatch_cost("nothing", lambda: None, "cpu") is None
@@ -88,6 +98,131 @@ def test_span_is_a_profiler_range():
             torch.ones(4).sum()
     names = {e.key for e in prof.key_averages()}
     assert "device_sim.dispatch" in names
+
+
+def test_span_lies_on_the_profilers_clock():
+    """``ts`` is the profiler's Unix clock: each span starts within 100 us
+    before its ``record_function``'s ``start_ns()`` and ends after it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ttrace.enable()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with ttrace.span("clock.warm"):     # the profiler's first range
+            pass
+        for i in range(3):
+            with ttrace.span(f"clock.probe{i}"):
+                torch.ones(4).sum()
+    ranges = {e.name(): (e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events()}
+    probes = [e for e in ttrace.events() if e["name"].startswith("clock.p")]
+    assert len(probes) == 3
+    for ev in probes:
+        start, end = ranges[ev["name"]]
+        lead_us = start / 1e3 - ev["ts"]
+        assert -1.0 <= lead_us < 100.0, (ev, start)
+        assert ev["ts"] + ev["dur"] >= end / 1e3 - 1.0, (ev, end)
+
+
+def test_parent_ids_nest():
+    ttrace.enable()
+    with ttrace.span("a") as a:
+        with ttrace.span("b") as b:
+            with ttrace.span("c") as c:
+                pass
+        with ttrace.span("d") as d:
+            pass
+    with ttrace.span("e") as e:
+        pass
+    ev = {x["name"]: x for x in ttrace.events()}
+    assert len({x["id"] for x in ev.values()}) == 5
+    assert [ev[n]["id"] for n in "abcde"] == [s.id for s in (a, b, c, d, e)]
+    assert ev["a"]["parent"] is None and ev["e"]["parent"] is None
+    assert ev["b"]["parent"] == a.id and ev["d"]["parent"] == a.id
+    assert ev["c"]["parent"] == b.id
+
+
+def test_record_writes_the_span_it_is_given():
+    ttrace.enable()
+    t0 = ttrace.now_ns()
+    with ttrace.span("outer") as outer:
+        sid = ttrace.record("unit.request", t0 - 5_000, t0 + 12_345_000,
+                            rid=3, slot=1)
+    ttrace.disable()
+    assert ttrace.record("unit.request", 0, 1) is None
+    ev = [e for e in ttrace.events() if e["name"] == "unit.request"]
+    assert len(ev) == 1
+    ev = ev[0]
+    assert ev["ph"] == "X" and ev["id"] == sid and ev["parent"] == outer.id
+    assert ev["ts"] == (t0 - 5_000) / 1e3
+    assert ev["dur"] == 12_350.0
+    assert ev["args"] == {"rid": 3, "slot": 1}
+
+
+def test_span_args_set_before_it_closes():
+    ttrace.enable()
+    with ttrace.span("call", n=1) as call:
+        call.set(steps=7)
+    assert ttrace.events()[0]["args"] == {"n": 1, "steps": 7}
+
+
+def _x(name, ts_ns, end_ns, sid, parent):
+    return {"name": name, "ph": "X", "ts": ts_ns / 1e3,
+            "dur": (end_ns - ts_ns) / 1e3, "id": sid, "parent": parent}
+
+
+def test_idle_by_span_on_hand_made_intervals():
+    """Window 0-150 ns, device busy to 5, 20-30, 55-58, 90-120: the idle 102 ns
+    go to the innermost open span on the stack; a recorded span across
+    its parent's bounds (a request) takes none."""
+    spans = [_x("outer", 0, 100, 1, None), _x("child", 10, 40, 2, 1),
+             _x("child2", 50, 60, 3, 1), _x("quiet", 92, 98, 4, 1),
+             _x("unit.request", -5, 200, 5, 2)]
+    busy = [(-10, 5), (20, 30), (55, 58), (90, 120), (160, 170)]
+    got = ttrace.idle_by_span(spans, busy, 0, 150)
+    want = {"outer": 5 + 10 + 30, "child": 10 + 10,
+            "child2": 5 + 2, "quiet": 0, "none": 30}
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v / 1e9, abs=1e-15), k
+    assert sum(got.values()) == pytest.approx(
+        (150 - 5 - 10 - 3 - 30) / 1e9, abs=1e-15)
+    assert ttrace.idle_by_span([], [], 0, 10) == {"none": pytest.approx(1e-8)}
+
+
+def test_serve_spans_readings_on_hand_made_spans():
+    """The readings ``experiments/serve_spans/run.py`` takes from the
+    serving path's spans: the host's own time a step, time to first
+    token, and a share of idle time by span."""
+    import importlib.util
+    from pathlib import Path
+
+    path = (Path(__file__).resolve().parents[1] / "experiments" /
+            "serve_spans" / "run.py")
+    spec = importlib.util.spec_from_file_location("serve_spans_run", path)
+    run = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(run)
+    us = 1e3                                    # ns in a microsecond
+    spans = [_x("serve.step", 0, 10_000 * us, 1, None),
+             _x("serve.token_read", 1_000 * us, 7_000 * us, 2, 1),
+             _x("serve.step", 10_000 * us, 14_000 * us, 3, None),
+             _x("serve.token_read", 11_000 * us, 12_000 * us, 4, 3),
+             _x("serve.step", 14_000 * us, 20_000 * us, 5, None)]
+    # Host time a step: 4, 3 and 6 ms; the median is 4.
+    assert run.host_step_ms(spans) == pytest.approx(4.0)
+    assert run.host_step_ms([]) is None
+    reqs = []
+    for i, first_ms in enumerate(range(1, 101)):
+        ev = _x("serve.request", 5_000 * us, 90_000_000 * us, 10 + i, None)
+        ev["args"] = {"first_token_ns": 5_000 * us + first_ms * 1e6}
+        reqs.append(ev)
+    assert run.ttft_p95_ms(reqs) == pytest.approx(95.05)
+    assert run.ttft_p95_ms(spans) is None
+    idle = {"serve.decode": 0.5, "serve.feed": 0.1, "serve.step": 0.2,
+            "none": 0.2}
+    assert run.idle_share(idle, 10.0, run.ENGINE) == pytest.approx(3.0)
+    assert run.idle_share(idle, 10.0, ("serve.decode",)) == \
+        pytest.approx(5.0)
+    assert run.idle_share(idle, 10.0, ("ssm.rwkv_scan",)) is None
 
 
 def test_dispatch_cost_on_the_cpu_is_host_time():

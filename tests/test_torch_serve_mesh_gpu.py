@@ -14,7 +14,8 @@ weights, the decode cache and each step's tokens out as DTensors over a
 
 * ``serve_demo`` joined to the group gives the plain run's tokens, with
   no kernel launch, and its only host syncs are the counted token reads
-  (``serve.engine.TOKEN_READS``, one a step), as without the group;
+  (``token_reads`` on the traced ``serve.generate`` span, one a step), as
+  without the group;
 * hymba-1.5b and rwkv6-3b (float32) give the plain run's tokens through
   24 greedy decode steps, their recurrent states written in place.
 """
@@ -35,6 +36,7 @@ from repro_torch.kernels.rmsnorm import kernel as rn_kernel  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import serve_demo  # noqa: E402
 from repro_torch.models.registry import build_model, get_config  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serve import engine as engine_mod  # noqa: E402
 from repro_torch.sharding import (distribute_model, make_plan,  # noqa: E402
                                   step_layout, whole)
@@ -97,13 +99,16 @@ def test_serve_demo_over_one_nccl_rank(cuda, tmp_path):
     dist.init_process_group(
         "nccl", store=dist.FileStore(os.path.join(tmp_path, "store"), 1),
         rank=0, world_size=1)
+    obs_trace.enable()
     try:
-        reads = engine_mod.TOKEN_READS
         got, syncs = _audited(lambda: serve_demo("qwen1.5-0.5b", smoke=True,
                                                  device=cuda))
-        reads = engine_mod.TOKEN_READS - reads
     finally:
+        obs_trace.disable()
         dist.destroy_process_group()
+    reads = sum(e["args"]["token_reads"] for e in obs_trace.events()
+                if e["name"] == "serve.generate")
+    obs_trace.clear()
     assert got["ranks"] == 1 and want["ranks"] == 1
     assert got["generated"] == want["generated"]
     assert [m.LAUNCHES for m in mods] == [0, 0, 0]
