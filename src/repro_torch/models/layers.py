@@ -5,7 +5,13 @@ parameters.  Parameters keep the reference's einsum layouts (an embedding
 table is (vocab, d), an MLP's ``wi`` is (d, d_ff)), so weights carry across
 unchanged.  Every product accumulates in float32 and returns float32
 (:func:`dot`), whatever the storage type, as the reference's
-``preferred_element_type=F32`` does.
+``preferred_element_type=F32`` does.  :func:`dot` takes one of two routes,
+by what its operands show: two bfloat16 operands, plain CUDA tensors whose
+product autograd does not record, multiply on the tensor cores with a
+float32 sum and result (``torch.mm(..., out_dtype=float32)``: the product of
+two bfloat16 values is exact in float32); everything else (the CPU, a
+float32 operand, training, DTensors) is upcast to float32 and multiplied
+there.  ``DOT_TENSOR_CORE`` and ``DOT_FLOAT32`` count the two.
 """
 
 from __future__ import annotations
@@ -19,6 +25,13 @@ from torch import nn
 from repro_torch.sharding import gather_weight, lookup, shard
 
 F32 = torch.float32
+BF16 = torch.bfloat16
+
+#: Products :func:`dot` ran in this process, on the tensor cores and on
+#: the float32 route; :func:`dot` adds one to either a call and nothing
+#: else touches them.
+DOT_TENSOR_CORE = 0
+DOT_FLOAT32 = 0
 
 
 def truncated_normal_(t: torch.Tensor, stddev: float,
@@ -42,10 +55,43 @@ def param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def tensor_core_route(x: torch.Tensor, w: torch.Tensor, device_type: str,
+                      distributed: bool) -> bool:
+    """Whether :func:`dot` multiplies ``x`` by the 2-D ``w`` on the tensor
+    cores: both bfloat16, on ``device_type`` "cuda", neither a DTensor
+    (``distributed`` false), and autograd not recording the product
+    (``aten::mm.dtype`` has no derivative)."""
+    return (x.dtype == BF16 and w.dtype == BF16 and w.dim() == 2
+            and device_type == "cuda" and not distributed
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or w.requires_grad)))
+
+
+def _tensor_core_mm(x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The tensor-core product, apart so that a CPU test (the CPU has no
+    kernel for it) can stand in for it."""
+    return torch.mm(x2d, w, out_dtype=F32)
+
+
+def _is_dtensor(t: torch.Tensor) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` accumulated and returned in float32 (a sharded weight
-    gathered first: see ``sharding.gather_weight``)."""
+    gathered first: see ``sharding.gather_weight``).  Two bfloat16
+    operands that :func:`tensor_core_route` admits run on the tensor cores,
+    ``x`` flattened to rows; anything else is upcast to float32 first."""
+    global DOT_TENSOR_CORE, DOT_FLOAT32
     w = gather_weight(w)
+    if tensor_core_route(x, w, x.device.type,
+                         _is_dtensor(x) or _is_dtensor(w)):
+        DOT_TENSOR_CORE += 1
+        y = _tensor_core_mm(x.reshape(-1, x.shape[-1]), w)
+        return y.view(*x.shape[:-1], w.shape[1])
+    DOT_FLOAT32 += 1
     if x.dtype != F32 or w.dtype != F32:
         x, w = x.float(), w.float()
     return x @ w
