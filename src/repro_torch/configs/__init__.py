@@ -9,6 +9,13 @@ cross-attention every 5th layer); the encoder-decoder whisper-large-v3;
 the hybrid hymba-1.5b (attention and a Mamba mixer in parallel, a
 2048-token window); and the attention-free rwkv6-3b.  ``shapes`` holds
 the dry-run's four input shapes.
+
+Beside them, outside ``ARCH_MODULES`` (the JAX package's ten, which the
+parity tests hold the port to): ``kimi_k2_instruct``, Kimi-K2-Instruct as
+its published config.json states it (latent attention, YaRN, a dense
+first layer, a sigmoid router over 384 experts with a correction bias),
+which ``kimi-k2-1t-a32b`` only guesses at; it has no JAX twin and is held
+to the plain reference ``portbench/reference/moe.py``.
 """
 
 from repro_torch.configs.shapes import SHAPES, InputShape, shapes_for

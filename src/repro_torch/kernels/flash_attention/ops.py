@@ -6,8 +6,11 @@ from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0):
-    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    scale: float = None):
+    """q: (B, Sq, Hq, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv), Dv <= D
+    -> (B, Sq, Hq, Dv); scores scaled by ``scale`` (``D ** -0.5`` when
+    None).
 
     A CUDA tensor goes to the hand-written kernel, a CPU tensor to the
     plain torch version; there is no fallback between them.  Ragged
@@ -20,7 +23,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
             raise TypeError(f"flash_attention: {name} is a DTensor; pass "
                             "each rank's local tensor (sharding.local_heads)")
     if q.device.type == "cuda":
-        return kernel.flash_attention_cuda(q, k, v, causal, window)
+        return kernel.flash_attention_cuda(q, k, v, causal, window, scale)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention: no path for device {q.device}")
-    return flash_attention_plain(q, k, v, causal, window)
+    return flash_attention_plain(q, k, v, causal, window, scale)

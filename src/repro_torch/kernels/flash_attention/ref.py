@@ -14,9 +14,11 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
-    """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) with Hq % Hkv == 0 ->
-    (B, Sq, Hq, D) in q's dtype.
+def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0,
+                          scale: float = None):
+    """q: (B, Sq, Hq, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv) with Hq
+    % Hkv == 0 -> (B, Sq, Hq, Dv) in q's dtype; scores scaled by ``scale``
+    (``D ** -0.5`` when None).
 
     Query head h reads KV head ``h // (Hq // Hkv)``.  Key j is seen by
     query row i when ``j <= i`` (causal) and ``j > i - window``
@@ -27,7 +29,8 @@ def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
     skv, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
     qg = q.float().reshape(b, sq, hkv, group, d)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * (d ** -0.5)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * (
+        d ** -0.5 if scale is None else scale)
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -38,4 +41,4 @@ def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
     scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1) * mask.any(-1, keepdim=True)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
-    return out.reshape(b, sq, hq, d).to(q.dtype)
+    return out.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)

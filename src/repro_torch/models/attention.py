@@ -8,24 +8,44 @@ flash_attention` (the hand-written kernel on a GPU), ``"plain"`` through
 each device's own rows and heads (``sharding.local_heads``).
 Cross-attention and decode attend with plain tensor code whatever the
 route, as the reference does.
+
+Latent attention (MLA, :class:`MLA`, where ``cfg.kv_lora_rank`` > 0) has
+two forms.  Prefill (:func:`mla_attention`) expands the normalised latent
+into every head's keys and values and attends through the same route,
+q/k heads of ``qk_nope_head_dim + qk_rope_head_dim`` and v heads of
+``v_head_dim`` with ``cfg.mla_softmax_scale``; it can write the latent
+and the rotated key part into a decode cache.  Decode
+(:func:`mla_decode`) is absorbed: each head's query is carried into the
+latent space through the key up-projection, attends the cached latents
+and rotated key parts, and its read-out of the latents goes through the
+value up-projection.  ``MLA_PREFILL`` and ``MLA_DECODE`` count the calls;
+the spans ``mla.prefill`` and ``mla.decode`` enclose them.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 from repro_torch.models import layers
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, yarn_mscale
 from repro_torch.models.layers import dot, param, truncated_normal_
+from repro_torch.obs import trace as obs_trace
 from repro_torch.sharding import local_heads, put_rows, reshape, shard
 
 F32 = torch.float32
 NEG_INF = -1e30
+
+#: MLA calls in this process: :func:`mla_attention` and :func:`mla_decode`
+#: add one a call (one a layer) and nothing else touches them.
+MLA_PREFILL = 0
+MLA_DECODE = 0
 
 
 class Attention(nn.Module):
@@ -233,3 +253,160 @@ def decode_core(q, k_cache, v_cache, valid):
     out = torch.einsum("bkgs,bskh->bkgh", probs.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+# ------------------------------------------------------ latent attention
+class MLA(nn.Module):
+    """Latent attention's projections (DeepSeek-V3's): ``wq_a`` (d, Rq)
+    into the query latent, normalised by ``q_norm``, ``wq_b`` (Rq, H, Dn +
+    Dr) out of it; ``wkv_a`` (d, Rkv + Dr) into the key-value latent
+    (normalised by ``kv_norm``) and the shared rotated key part, ``wkv_b``
+    (Rkv, H, Dn + Dv) out of the latent into each head's key part and
+    value; ``wo`` (H, Dv, d)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, h, wdt = cfg.d_model, cfg.n_heads, cfg.weight_dtype()
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        self.wq_a = param((d, cfg.q_lora_rank), wdt, device)
+        self.q_norm = layers.Norm(cfg.q_lora_rank, device)
+        self.wq_b = param((cfg.q_lora_rank, h, dn + dr), wdt, device)
+        self.wkv_a = param((d, cfg.kv_lora_rank + dr), wdt, device)
+        self.kv_norm = layers.Norm(cfg.kv_lora_rank, device)
+        self.wkv_b = param((cfg.kv_lora_rank, h, dn + dv), wdt, device)
+        self.wo = param((h, dv, d), wdt, device)
+
+    def reset_parameters(self, generator) -> None:
+        for w in (self.wq_a, self.wq_b, self.wkv_a, self.wkv_b):
+            truncated_normal_(w, w.shape[0] ** -0.5, generator)
+        truncated_normal_(self.wo, (self.wo.shape[0] * self.wo.shape[1])
+                          ** -0.5, generator)
+        self.q_norm.reset_parameters()
+        self.kv_norm.reset_parameters()
+
+
+def yarn_inv_freq(cfg: ModelConfig, device=None) -> torch.Tensor:
+    """The rotated dims' frequencies (Dr / 2,), float32: ``rope_theta``'s
+    plain ones, or with YaRN (``rope_scaling_factor`` > 1, DeepSeek's
+    form) a linear ramp over the correction range from the plain ones
+    (extrapolated) down to them over the factor (interpolated)."""
+    dim, base = cfg.qk_rope_head_dim, cfg.rope_theta
+    plain = 1.0 / (base ** (torch.arange(0, dim, 2, dtype=F32,
+                                         device=device) / dim))
+    factor = cfg.rope_scaling_factor
+    if factor <= 1:
+        return plain
+
+    def correction_dim(rotations):
+        return (dim * math.log(cfg.rope_original_max_len
+                               / (rotations * 2 * math.pi))
+                / (2 * math.log(base)))
+
+    low = max(math.floor(correction_dim(cfg.rope_beta_fast)), 0)
+    high = min(math.ceil(correction_dim(cfg.rope_beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=F32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    return plain * (1 - ramp) + plain / factor * ramp
+
+
+def yarn_angles(positions, cfg: ModelConfig):
+    """positions (..., S) integer -> (cos, sin) (..., S, Dr / 2), each
+    times YaRN's ``mscale(factor, mscale) / mscale(factor,
+    mscale_all_dim)``."""
+    ang = positions.to(F32)[..., None] * yarn_inv_freq(cfg, positions.device)
+    m = 1.0
+    if cfg.rope_scaling_factor > 1:
+        m = (yarn_mscale(cfg.rope_scaling_factor, cfg.rope_mscale)
+             / yarn_mscale(cfg.rope_scaling_factor, cfg.rope_mscale_all_dim))
+    return torch.cos(ang) * m, torch.sin(ang) * m
+
+
+def _mla_project(params: MLA, x, cfg: ModelConfig, cos, sin):
+    """x (B, S, d) -> q (B, S, H, Dn + Dr) with its rotated part rotated,
+    the normalised latent c_kv (B, S, Rkv) and the rotated key part k_pe
+    (B, S, Dr), all in x's dtype."""
+    b, s, d = x.shape
+    dt, r = x.dtype, cfg.kv_lora_rank
+    dn = cfg.qk_nope_head_dim
+    c_q = layers.rms_norm(dot(x, params.wq_a), params.q_norm.scale).to(dt)
+    q = dot(c_q, params.wq_b.reshape(cfg.q_lora_rank, -1)).reshape(
+        b, s, cfg.n_heads, -1).to(dt)
+    q = torch.cat([q[..., :dn], layers.apply_rope(q[..., dn:], cos, sin)], -1)
+    kv_a = dot(x, params.wkv_a)
+    c_kv = layers.rms_norm(kv_a[..., :r], params.kv_norm.scale).to(dt)
+    k_pe = layers.apply_rope(kv_a[..., None, r:].to(dt), cos, sin)[:, :, 0]
+    return q, c_kv, k_pe
+
+
+def mla_attention(params: MLA, x, cfg: ModelConfig, latent=None
+                  ) -> torch.Tensor:
+    """Full-sequence causal latent attention at positions 0..S-1 (prefill).
+
+    The latent is expanded into every head's key part and value (``wkv_b``)
+    and the rotated key part joined to each head's; attention runs on
+    ``cfg.attention_impl``'s route (the flash kernel on a GPU) with q/k
+    heads of Dn + Dr, v heads of Dv and ``cfg.mla_softmax_scale``.  With
+    ``latent`` = (c_cache, pe_cache), (B, >= S, Rkv) and (B, >= S, Dr), the
+    normalised latents and rotated key parts are written into their first
+    S rows, as :func:`mla_decode` reads them."""
+    global MLA_PREFILL
+    MLA_PREFILL += 1
+    with obs_trace.span("mla.prefill"):
+        b, s, _ = x.shape
+        dn, h = cfg.qk_nope_head_dim, cfg.n_heads
+        cos, sin = yarn_angles(torch.arange(s, device=x.device)[None, :], cfg)
+        q, c_kv, k_pe = _mla_project(params, x, cfg, cos, sin)
+        if latent is not None:
+            latent[0][:, :s] = c_kv
+            latent[1][:, :s] = k_pe
+        kv = dot(c_kv, params.wkv_b.reshape(cfg.kv_lora_rank, -1)).reshape(
+            b, s, h, -1).to(x.dtype)
+        k = torch.cat([kv[..., :dn],
+                       k_pe[:, :, None].expand(b, s, h, k_pe.shape[-1])], -1)
+        v = kv[..., dn:]
+        attend = (fa_ops.flash_attention if cfg.attention_impl == "kernel"
+                  else flash_attention_plain)
+        out = attend(q, k, v.contiguous(), causal=True,
+                     scale=cfg.mla_softmax_scale)
+        return _out_proj(params, out, x.dtype)
+
+
+def mla_decode(params: MLA, x, c_cache, pe_cache, pos, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """One-token absorbed latent attention with per-sequence positions.
+
+    x: (B, 1, d); c_cache (B, max_len, Rkv) and pe_cache (B, max_len, Dr),
+    the normalised latents and rotated key parts; pos: (B,) each
+    sequence's length (write index).  The new token's latent and key part
+    are written in place at ``pos`` (nothing at or past ``max_len``), then
+    every position ``<= pos`` is attended in the latent space: scores
+    ``(q_nope W_uk^T) . c + q_pe . k_pe``, values ``W_uv`` applied to the
+    probabilities' read-out of the latents, all in float32.  Returns y
+    (B, 1, d)."""
+    global MLA_DECODE
+    MLA_DECODE += 1
+    with obs_trace.span("mla.decode"):
+        b = x.shape[0]
+        dn, r = cfg.qk_nope_head_dim, cfg.kv_lora_rank
+        max_len = c_cache.shape[1]
+        pos = torch.as_tensor(pos, device=x.device).reshape(b).long()
+        cos, sin = yarn_angles(pos[:, None], cfg)
+        q, c_kv, k_pe = _mla_project(params, x, cfg, cos, sin)
+        slot = pos.clamp(max=max_len - 1)
+        keep = pos < max_len
+        put_rows(c_cache, slot, c_kv[:, 0].to(c_cache.dtype), keep=keep)
+        put_rows(pe_cache, slot, k_pe[:, 0].to(pe_cache.dtype), keep=keep)
+        w_uk = params.wkv_b[..., :dn].float()          # (Rkv, H, Dn)
+        w_uv = params.wkv_b[..., dn:].float()          # (Rkv, H, Dv)
+        q_lat = torch.einsum("bhn,rhn->bhr", q[:, 0, :, :dn].float(), w_uk)
+        scores = (torch.einsum("bhr,bsr->bhs", q_lat, c_cache.float())
+                  + torch.einsum("bhp,bsp->bhs", q[:, 0, :, dn:].float(),
+                                 pe_cache.float())) * cfg.mla_softmax_scale
+        valid = torch.arange(max_len, device=x.device)[None, :] <= pos[:, None]
+        scores = scores.masked_fill(~valid[:, None, :], NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhs,bsr->bhr", probs, c_cache.float())
+        out = torch.einsum("bhr,rhv->bhv", o_lat, w_uv).to(x.dtype)
+        return _out_proj(params, out[:, None], x.dtype)

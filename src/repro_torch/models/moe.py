@@ -22,6 +22,32 @@ descending sort (the lower expert first on ties, as ``jax.lax.top_k``),
 slots flattened slot-major (``topi.T``), the load-balance loss's argmax
 taking the first maximum.  Products accumulate in float32 and round once
 (:func:`repro_torch.models.layers.dot`).
+
+Kimi-K2's layer (``cfg.router_scoring == "sigmoid"``, :func:`_moe_sigmoid`)
+routes and dispatches apart from all of the above, which stays the JAX
+package's twin:
+
+    s = sigmoid(h W_r)                     float32, over all
+                                           ``router_experts``
+    top = the k largest of s + b           b the float32 correction bias,
+                                           used only to choose; a stable
+                                           sort, the lower id first on ties
+    w_i = routed_scaling_factor * s_i / sum_top s
+    y = sum_{i in top, i held} w_i E_i(h) + S(h)
+
+with no capacity and no dropped pair.  Only the ``n_experts`` held here
+(ids ``expert_offset ...``) are computed: the (token, slot) pairs that
+land on them are sorted by expert and run as grouped bfloat16 products
+over the pairs (``torch._grouped_mm`` on the card, float32 sums; a loop
+of :func:`~repro_torch.models.layers.dot` elsewhere), the weight applied
+before the down projection, and added back per token; the router's
+product runs in float32 on the normalised stream, as published.  Nothing
+waits for the device: the buffers hold every pair that could land here
+(``T * min(k, n_experts)`` rows), and the groups' ends stay on the
+device.  Spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
+``moe.combine``; ``GROUPED_EXPERTS`` counts the held experts' calls (one
+a layer), and while tracing is on :func:`held_pairs` gets each call's
+count of pairs that landed here, still on the device.
 """
 
 from __future__ import annotations
@@ -34,23 +60,35 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dot, param, truncated_normal_
+from repro_torch.models.layers import BF16, dot, param, truncated_normal_
+from repro_torch.obs import trace as obs_trace
 
 F32 = torch.float32
 DISPATCHES = ("scatter", "einsum", "shard_map")
+
+#: Calls of the held experts' grouped products in this process (one a
+#: sigmoid-routed layer); :func:`_moe_sigmoid` adds one a call.
+GROUPED_EXPERTS = 0
+#: While tracing is on, each sigmoid-routed call's count of (token, slot)
+#: pairs that landed on the held experts, a one-element device tensor.
+_HELD_PAIRS = []
 
 
 class MoE(nn.Module):
     """The reference's tree: ``router`` (d, E) float32, ``experts_wi`` and
     ``experts_wi_gate`` (E, d, d_ff), ``experts_wo`` (E, d_ff, d), and with
     shared experts ``shared_wi``, ``shared_wi_gate`` (d, S) and
-    ``shared_wo`` (S, d), S = d_ff x n_shared_experts."""
+    ``shared_wo`` (S, d), S = d_ff x n_shared_experts.  The sigmoid router
+    scores ``router_experts`` (its width) and adds ``router_bias`` (that
+    many, float32) to choose; E is the experts held here."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         d, dff, e = cfg.d_model, cfg.resolved_moe_d_ff, cfg.n_experts
         wd = cfg.weight_dtype()
-        self.router = param((d, e), F32, device)
+        self.router = param((d, cfg.resolved_router_experts), F32, device)
+        self.router_bias = (param((cfg.resolved_router_experts,), F32, device)
+                            if cfg.router_scoring == "sigmoid" else None)
         self.experts_wi = param((e, d, dff), wd, device)
         self.experts_wi_gate = param((e, d, dff), wd, device)
         self.experts_wo = param((e, dff, d), wd, device)
@@ -65,6 +103,9 @@ class MoE(nn.Module):
     def reset_parameters(self, generator) -> None:
         d, dff = self.experts_wi.shape[1:]
         truncated_normal_(self.router, d ** -0.5, generator)
+        if self.router_bias is not None:
+            with torch.no_grad():
+                self.router_bias.zero_()
         truncated_normal_(self.experts_wi, d ** -0.5, generator)
         truncated_normal_(self.experts_wi_gate, d ** -0.5, generator)
         truncated_normal_(self.experts_wo, dff ** -0.5, generator)
@@ -287,9 +328,103 @@ def _dispatch_einsum(params: MoE, x, cfg: ModelConfig):
     return y.to(x.dtype), probs
 
 
+def _route_sigmoid(params: MoE, x, cfg: ModelConfig):
+    """x (T, d) -> (weights (T, k) float32, ids (T, k)) over all the
+    router's experts."""
+    scores = torch.sigmoid(dot(x, params.router))
+    _, ids = torch.sort(scores + params.router_bias, dim=-1, descending=True,
+                        stable=True)
+    ids = ids[:, :cfg.n_experts_per_token]
+    w = scores.gather(1, ids)
+    w = w / (w.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scaling_factor
+    return w, ids
+
+
+def _grouped(x, w, ends):
+    """Rows of ``x`` (N, k) in groups, group ``g`` the rows up to
+    ``ends[g]`` (int32, on ``x``'s device) from the previous end, each
+    times ``w[g]`` (G, k, n) -> (N, n) in x's dtype; rows past the last end
+    are left undefined.  Two bfloat16 CUDA operands run as one grouped
+    tensor-core product with float32 sums; anything else a loop of
+    :func:`dot` over the groups (reading ``ends`` on the host)."""
+    if x.device.type == "cuda" and x.dtype == BF16 and w.dtype == BF16:
+        return torch._grouped_mm(x, w, offs=ends)
+    out = x.new_zeros((x.shape[0], w.shape[-1]))
+    start = 0
+    for g, end in enumerate(ends.tolist()):
+        out[start:end] = dot(x[start:end], w[g]).to(x.dtype)
+        start = end
+    return out
+
+
+def _dispatch_dropless(params: MoE, x, cfg: ModelConfig):
+    """The held experts' part of the sigmoid-routed layer, x (T, d) ->
+    float32 (T, d); see the module's docstring."""
+    global GROUPED_EXPERTS
+    t, d = x.shape
+    k, e = cfg.n_experts_per_token, cfg.n_experts
+    with obs_trace.span("moe.route"):
+        w, ids = _route_sigmoid(params, x, cfg)
+    with obs_trace.span("moe.dispatch"):
+        local = ids.reshape(-1) - cfg.expert_offset
+        key = torch.where((local >= 0) & (local < e), local, e)
+        # Pairs on the held experts first, by expert, then in token order;
+        # a token reaches an expert once, so at most T * min(k, E) pairs.
+        rows = t * min(k, e)
+        order = torch.sort(key, stable=True).indices[:rows]
+        counts = (key[:, None] == torch.arange(e, device=x.device)).sum(0)
+        ends = torch.cumsum(counts, 0).to(torch.int32)
+        if obs_trace.enabled():
+            _HELD_PAIRS.append(ends[-1:])
+        token = order // k
+        xs = x.index_select(0, token)
+        pair_w = w.reshape(-1)[order]
+        held = torch.arange(rows, device=x.device) < ends[-1]
+    with obs_trace.span("moe.experts"):
+        GROUPED_EXPERTS += 1
+        h = _grouped(xs, params.experts_wi, ends)
+        g = _grouped(xs, params.experts_wi_gate, ends)
+        a = (F.silu(g.float()) * h.float() * pair_w[:, None]).to(x.dtype)
+        out = _grouped(a, params.experts_wo, ends)
+    with obs_trace.span("moe.combine"):
+        y = torch.zeros((t, d), dtype=F32, device=x.device)
+        # T rows at a time: the float32 copy of all the rows would be 4
+        # bytes a row-element more.
+        for a0 in range(0, rows, t):
+            part = out[a0:a0 + t]
+            y.index_add_(0, token[a0:a0 + t], torch.where(
+                held[a0:a0 + t, None], part.float(), 0.0))
+    return y
+
+
+def held_pairs():
+    """Each sigmoid-routed call's count of pairs on the held experts since
+    the last read, while tracing was on (a host read: call it after the
+    traced stretch); clears them."""
+    counts = torch.cat(_HELD_PAIRS).tolist() if _HELD_PAIRS else []
+    _HELD_PAIRS.clear()
+    return counts
+
+
+def _moe_sigmoid(params: MoE, x, cfg: ModelConfig):
+    """x (B, S, d) -> (y, 0): the held experts' part plus the shared
+    experts, one rounding to x's dtype."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    y = _dispatch_dropless(params, xt, cfg)
+    if params.shared_wi is not None:
+        hs = (F.silu(dot(xt, params.shared_wi_gate))
+              * dot(xt, params.shared_wi)).to(xt.dtype)
+        y = y + dot(hs, params.shared_wo)
+    return (y.to(x.dtype).reshape(b, s, d),
+            torch.zeros((), dtype=F32, device=x.device))
+
+
 def moe_layer(params: MoE, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
                                                           torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss).  Routed experts + optional shared."""
+    if cfg.router_scoring == "sigmoid":
+        return _moe_sigmoid(params, x, cfg)
     if cfg.moe_dispatch not in DISPATCHES:
         raise ValueError(f"moe_dispatch {cfg.moe_dispatch!r} not in "
                          f"{DISPATCHES}")

@@ -16,7 +16,9 @@ Families:
     dense   pre-norm blocks: ``x += attn(n(x)); x += ffn(n(x))``, the
             feed-forward an MLP
     moe     the MLP replaced by routed experts plus shared ones (the
-            blocks also return the load-balance loss)
+            blocks also return the load-balance loss); Kimi-K2's form
+            adds latent attention (a latent decode cache) and dense first
+            blocks
     vlm     every ``cross_attn_every``-th block is an extra gated image
             cross-attention block (Llama-3.2-Vision style) over
             precomputed patch embeddings (``batch["image_embeds"]``)
@@ -95,10 +97,11 @@ def reference_ndim(name: str, p: torch.Tensor) -> int:
 
 class Block(nn.Module):
     """Norms ``ln1``, ``ln2``; for ssm an ``rwkv`` mixer alone, else
-    ``attn``, for hybrid a Mamba ``ssm`` beside it, and ``moe`` or
-    ``mlp``."""
+    ``attn`` (latent attention where ``cfg.mla``), for hybrid a Mamba
+    ``ssm`` beside it, and ``moe`` or ``mlp`` (``mlp`` in a moe model's
+    first ``cfg.first_k_dense`` blocks, ``layer`` the block's index)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, layer: int = 0):
         super().__init__()
         self.cfg = cfg
         self.ln1 = layers.Norm(cfg.d_model, device)
@@ -107,10 +110,11 @@ class Block(nn.Module):
         if cfg.family == "ssm":
             self.rwkv = ssm_mod.RWKV6(cfg, device)
             return
-        self.attn = attn_mod.Attention(cfg, device=device)
+        self.attn = (attn_mod.MLA(cfg, device) if cfg.mla
+                     else attn_mod.Attention(cfg, device=device))
         if cfg.family == "hybrid":
             self.ssm = ssm_mod.Mamba(cfg, device=device)
-        if cfg.family == "moe":
+        if cfg.family == "moe" and layer >= cfg.first_k_dense:
             self.moe = moe_mod.MoE(cfg, device)
         else:
             self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_activation,
@@ -128,8 +132,10 @@ class Block(nn.Module):
             return moe_mod.moe_layer(self.moe, h, self.cfg)
         return self.mlp(h), torch.zeros((), dtype=F32, device=h.device)
 
-    def forward(self, x, positions=None, causal: bool = True):
-        """(B, S, d) -> ((B, S, d), aux) over the full sequence."""
+    def forward(self, x, positions=None, causal: bool = True, latent=None):
+        """(B, S, d) -> ((B, S, d), aux) over the full sequence; latent
+        attention writes its latents into ``latent`` (see
+        :func:`attention.mla_attention`) where given."""
         cfg = self.cfg
         a = layers.apply_norm(cfg.norm, self.ln1, x)
         if self.rwkv is not None:
@@ -138,8 +144,11 @@ class Block(nn.Module):
             b_prev = ssm_mod.token_shift(b)
             x = x + ssm_mod.rwkv6_channel_mix(self.rwkv, b, b_prev)
             return x, torch.zeros((), dtype=F32, device=x.device)
-        att = attn_mod.attention(self.attn, a, cfg, positions=positions,
-                                 causal=causal)
+        if cfg.mla:
+            att = attn_mod.mla_attention(self.attn, a, cfg, latent)
+        else:
+            att = attn_mod.attention(self.attn, a, cfg, positions=positions,
+                                     causal=causal)
         if self.ssm is not None:
             x = x + 0.5 * (att + ssm_mod.mamba_forward(self.ssm, a, cfg))
         else:
@@ -177,6 +186,8 @@ class CrossBlock(nn.Module):
 
 
 def _blocks(cls, n: int, cfg: ModelConfig, device) -> nn.ModuleList:
+    if cls is Block:
+        return nn.ModuleList([Block(cfg, device, i) for i in range(n)])
     return nn.ModuleList([cls(cfg, device) for _ in range(n)])
 
 
@@ -255,15 +266,28 @@ class Model(nn.Module):
         return layers.apply_norm(self.cfg.norm, self.enc_norm, x)
 
     # ------------------------------------------------------------ forward
-    def forward(self, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, batch: Dict, cache: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward.  batch: tokens (B, S), and for vlm
         ``image_embeds`` (B, n_image_tokens, d), for audio ``audio_frames``
-        (B, encoder_seq, d).
+        (B, encoder_seq, d).  With latent attention a decode ``cache``
+        (:meth:`init_cache`, B rows) may be given: the prompt's latents are
+        written into it and its positions set to S, in place, so that
+        :meth:`decode_step` goes on from there.
 
         Returns (logits (B, S, V) f32, aux_loss scalar)."""
         cfg = self.cfg
         x = self._embed(batch["tokens"])
         aux = torch.zeros((), dtype=F32, device=x.device)
+        if cache is not None:
+            if not cfg.mla:
+                raise ValueError("forward fills a decode cache only with "
+                                 "latent attention")
+            for i, blk in enumerate(self.blocks):
+                x, a = blk(x, latent=(cache["c_kv"][i], cache["k_pe"][i]))
+                aux = aux + a
+            cache["pos"].fill_(x.shape[1])
+            return self._logits(x), aux
         if cfg.family == "vlm":
             kv_src = self._extra(batch["image_embeds"])
             for g in range(len(self.cross_blocks)):
@@ -309,13 +333,15 @@ class Model(nn.Module):
         of ``cache_len`` slots when the window fits); for hybrid the Mamba
         states ``ssm`` (L, B, d_inner, N); for ssm no KV cache but the
         RWKV states ``rwkv`` = {``wkv`` (L, B, H, hd, hd), ``x_tm``,
-        ``x_cm`` (L, B, d)}, all float32 zeros; for vlm ``image_embeds``
-        (B, n_image_tokens, d), for audio the encoder's output ``enc`` (B,
-        encoder_seq, d), zeros unless ``extras`` gives them (``extras``
-        replaces any entry).  Under an installed mesh (``sharding.
-        current_mesh``) the cache is laid out over it by ``sharding.
-        cache_sharding``, each rank keeping its own part of the whole
-        tensors (``extras`` the same on every rank)."""
+        ``x_cm`` (L, B, d)}, all float32 zeros; for latent attention the
+        normalised latents ``c_kv`` (L, B, max_len, Rkv) and rotated key
+        parts ``k_pe`` (L, B, max_len, Dr) in place of K and V; for vlm
+        ``image_embeds`` (B, n_image_tokens, d), for audio the encoder's
+        output ``enc`` (B, encoder_seq, d), zeros unless ``extras`` gives
+        them (``extras`` replaces any entry).  Under an installed mesh
+        (``sharding.current_mesh``) the cache is laid out over it by
+        ``sharding.cache_sharding``, each rank keeping its own part of the
+        whole tensors (``extras`` the same on every rank)."""
         cfg = self.cfg
         dev = self.device
         dt = cfg.activation_dtype()
@@ -325,6 +351,12 @@ class Model(nn.Module):
             cache["rwkv"] = {
                 k: torch.zeros((n,) + s, dtype=F32, device=dev)
                 for k, s in ssm_mod.rwkv6_state_shapes(cfg, batch).items()}
+        elif cfg.mla:
+            cache["c_kv"] = torch.zeros((n, batch, max_len, cfg.kv_lora_rank),
+                                        dtype=dt, device=dev)
+            cache["k_pe"] = torch.zeros(
+                (n, batch, max_len, cfg.qk_rope_head_dim), dtype=dt,
+                device=dev)
         else:
             shape = (n, batch, self.cache_len(max_len), cfg.n_kv_heads,
                      cfg.resolved_head_dim)
@@ -358,6 +390,14 @@ class Model(nn.Module):
         pos = cache["pos"]
         if cfg.family == "ssm":
             x = self._decode_rwkv(cache["rwkv"], x)
+            return self._logits(x), dict(cache, pos=pos + 1)
+        if cfg.mla:
+            for i, blk in enumerate(self.blocks):
+                a = layers.apply_norm(cfg.norm, blk.ln1, x)
+                x = x + attn_mod.mla_decode(blk.attn, a, cache["c_kv"][i],
+                                            cache["k_pe"][i], pos, cfg)
+                y, _aux = blk.ffn(layers.apply_norm(cfg.norm, blk.ln2, x))
+                x = x + y
             return self._logits(x), dict(cache, pos=pos + 1)
         k, v = cache["k"], cache["v"]
         if cfg.family == "vlm":

@@ -52,16 +52,18 @@ class ServeEngine:
 
     # ----------------------------------------------------------- prefill
     @torch.no_grad()
-    def prefill(self, batch) -> torch.Tensor:
+    def prefill(self, batch, cache: Optional[Dict] = None) -> torch.Tensor:
         """Full-sequence forward of ``batch`` -> logits (B, S, V) float32:
         ``tokens`` (B, S), with ``image_embeds`` (vlm) or ``audio_frames``
         (audio), whole on every rank; attention routes on
         ``cfg.attention_impl``.  Under a mesh the logits are a DTensor, its
-        rows where the batch's lie."""
+        rows where the batch's lie.  With latent attention a decode
+        ``cache`` of B rows may be given, which the prompt fills in place
+        (``Model.forward``), so that :meth:`serve_step` goes on from it."""
         with obs_trace.span("serve.prefill"):
             logits, _aux = self.model.forward(
                 {k: self._rows(torch.as_tensor(v, device=self.device))
-                 for k, v in batch.items()})
+                 for k, v in batch.items()}, cache=cache)
         return logits
 
     @torch.no_grad()

@@ -38,6 +38,7 @@ from repro.train.step import TrainStepBuilder as JBuilder  # noqa: E402
 from repro_torch import configs, convert  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.config import PORT_ONLY  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
 from repro_torch.models.transformer import Model, reference_ndim  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -111,6 +112,7 @@ def test_configs_match_the_reference():
             ref = dataclasses.asdict(jget(arch, smoke=smoke))
             assert ref.pop("attention_impl") == "xla"
             assert ours.pop("attention_impl") == "plain"
+            assert {k: ours.pop(k) for k in PORT_ONLY} == PORT_ONLY
             assert ours == ref
     assert get_config(GEMMA).resolved_head_dim == 256
     assert get_config(KIMI).resolved_head_dim == 112

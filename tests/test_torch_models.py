@@ -24,6 +24,7 @@ from repro.models.registry import build_model as jbuild  # noqa: E402
 from repro.models.registry import get_config as jget  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.models import attention, layers  # noqa: E402
+from repro_torch.models.config import PORT_ONLY  # noqa: E402
 from repro_torch.models.registry import build_model, get_config, list_archs  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 
@@ -61,6 +62,7 @@ def test_configs_match_the_reference():
             ref = dataclasses.asdict(jget(arch, smoke=smoke))
             assert ref.pop("attention_impl") == "xla"
             assert ours.pop("attention_impl") == "plain"
+            assert {k: ours.pop(k) for k in PORT_ONLY} == PORT_ONLY
             assert ours == ref
     cfg = get_config("qwen1.5-0.5b", dtype="float32", param_dtype="float32")
     assert cfg.activation_dtype() == torch.float32

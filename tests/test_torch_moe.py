@@ -26,6 +26,7 @@ from repro.serve.engine import ServeEngine as JServeEngine  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.launch.serve import serve_demo  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.config import PORT_ONLY  # noqa: E402
 from repro_torch.models.registry import get_config  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -81,6 +82,7 @@ def test_config_and_parameter_count_match_the_reference():
         ref = dataclasses.asdict(jget(ARCH, smoke=smoke))
         assert ref.pop("attention_impl") == "xla"
         assert ours.pop("attention_impl") == "plain"
+        assert {k: ours.pop(k) for k in PORT_ONLY} == PORT_ONLY
         assert ours == ref
     cfg = get_config(ARCH)
     assert cfg.resolved_moe_d_ff == 1408
